@@ -1,0 +1,483 @@
+"""wave2 sort-join mesh traversal (port of ``raytracer_tpu/ops/wave2_traverse.py``).
+
+Exact closest-hit / any-hit over a ``ClusterSet`` for a whole wavefront:
+
+0. ``_wave2_trace``: rays with work (t_max != 0) are compacted to the front
+   by one stable sort and traced in windows of ``SUBWAVE`` rays.
+1. ``_p1_extract``: dense (rays x Cs) slab test against the super-cluster
+   boxes; each ray takes its ``kc`` smallest overlapped super ids above its
+   cursor, ascending (the reference bit-packs the hit matrix on the TPU's
+   matrix unit; only its result is ported).
+2. ``_pair_join``: one stable sort of the (ray, super) pairs on the key
+   ``super << shift | octant | origin Morton``; a second sort filler-pads
+   every super's run to whole ``CHUNK``-pair chunks, so no chunk crosses
+   supers and nothing is dropped; ``block_cluster`` names each chunk's super.
+3. ``mt_chunks``: Möller-Trumbore per chunk — the hand-written CUDA kernel
+   ``csrc/wave2_mt.cu`` on the card, its plain PyTorch twin on the CPU.
+4. A third sort returns the results to ray order; a dense (N, kc) masked
+   min picks each ray's hit (least t, ties to the lowest tri id).
+5. ``_window_trace``: unresolved rays (a nearer unvisited candidate may
+   exist) are compacted into ``NSUB``-ray sub-wavefronts and traced again
+   until none remain — the exactness guarantee.
+
+The stages keep the reference's padding and ordering so the two packages
+can be compared stage by stage.  The reference's ``lax.while_loop`` trip
+counts, computed on the device, become python loops with one ``.item()``
+per window and per continuation round.  Traversal is detached from the
+autograd graph, as in the reference.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from ..math.vec import Vec3
+from ..scene.clusters import SUB_PER_SUPER, ClusterSet
+from .intersect import BIG
+
+TRI_EPS = 1e-7
+HIT_EPS = 1e-4
+CHUNK = 1024  # pairs per MT work chunk
+assert CHUNK % 128 == 0, "a chunk is whole rows of 128 pairs"
+ROWS = CHUNK // 128
+NSUB = 16384  # continuation sub-wavefront size
+SUBWAVE = 65536  # rays per traced window
+KC = 16  # candidate supers per ray per round
+BIGF = 3.0e38
+_P1_CHUNK_ELEMS = 1 << 26  # bound on one (rays x Cs) slab-test block
+
+
+def _key_shift(cs: int) -> int:
+    """Shift of the super id in the pair key; keeps the key inside int32."""
+    return max(0, min(21, 31 - max(1, int(cs + 1).bit_length())))
+
+
+def _inv(d):
+    """Slab-test inverse with the reference's 1e-12 floor."""
+    tiny = 1e-12
+    return 1.0 / torch.where(torch.abs(d) > tiny, d, torch.where(d >= 0, tiny, -tiny))
+
+
+def _stable_sort(key, *payloads):
+    """``lax.sort(num_keys=1)``: stable sort on ``key``, payloads ride along."""
+    sk, perm = torch.sort(key, stable=True)
+    return (sk,) + tuple(p[perm] for p in payloads)
+
+
+def _arange(n, like):
+    return torch.arange(n, dtype=torch.int32, device=like.device)
+
+
+# --------------------------------------------------------------------------
+# Phase 1: per-ray candidate extraction over super-cluster boxes
+# --------------------------------------------------------------------------
+
+
+def _p1_extract(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tl, cursor, kc: int):
+    """(N,) rays -> (cand (N, kc) ascending super ids with ``hit & id >
+    cursor``, padded with Cs; remaining (N,) = max(total - kc, 0))."""
+    n = ox.shape[0]
+    cs = cs_set.num_supers
+    box = cs_set.super_box
+    cid = _arange(cs, ox)[None, :]
+    ix, iy, iz = _inv(dx), _inv(dy), _inv(dz)
+    rows = max(1, _P1_CHUNK_ELEMS // max(cs, 1))
+    cands, rems = [], []
+    for a in range(0, n, rows):
+        col = lambda v: v[a:a + rows, None]
+        t1x = (box[None, :, 0] - col(ox)) * col(ix)
+        t2x = (box[None, :, 3] - col(ox)) * col(ix)
+        t1y = (box[None, :, 1] - col(oy)) * col(iy)
+        t2y = (box[None, :, 4] - col(oy)) * col(iy)
+        t1z = (box[None, :, 2] - col(oz)) * col(iz)
+        t2z = (box[None, :, 5] - col(oz)) * col(iz)
+        tmin = torch.maximum(torch.maximum(torch.minimum(t1x, t2x), torch.minimum(t1y, t2y)),
+                             torch.minimum(t1z, t2z))
+        tmax = torch.minimum(torch.minimum(torch.maximum(t1x, t2x), torch.maximum(t1y, t2y)),
+                             torch.maximum(t1z, t2z))
+        ent = torch.clamp_min(tmin, 0.0)
+        # tl's SIGN encodes per-ray any-hit mode; the limit is |tl|
+        hit = (tmax >= ent) & (ent < torch.abs(col(tl))) & (cid > col(cursor))
+        ids = torch.where(hit, cid, cs)
+        cands.append(torch.topk(ids, kc, dim=1, largest=False, sorted=True).values)
+        rems.append(torch.clamp_min(hit.sum(1, dtype=torch.int32) - kc, 0))
+    return torch.cat(cands), torch.cat(rems)
+
+
+# --------------------------------------------------------------------------
+# Phase 2: sort-join into single-super chunks
+# --------------------------------------------------------------------------
+
+
+class PairJoin(NamedTuple):
+    sidx: torch.Tensor  # (p_pad,) pair slot at each stage-1 sorted position (p = pad)
+    fidx: torch.Tensor  # (d_len,) pair slot at each padded position (>= p: pad/filler)
+    pairs: tuple  # 7 x (B2, ROWS, 128) f32: ox, oy, oz, dx, dy, dz, tl per pair
+    block_cluster: torch.Tensor  # (B2,) int32 super id per chunk (Cs = sentinel)
+
+
+def _pair_join(cs_set: ClusterSet, cand, ox, oy, oz, dx, dy, dz, tl) -> PairJoin:
+    n, kc = cand.shape
+    cs = cs_set.num_supers
+    p = n * kc
+    p_pad = -(-p // CHUNK) * CHUNK
+
+    # composite key (super id | ray octant | ray origin Morton): chunks stay
+    # single-super while each chunk's rows become spatially and
+    # directionally coherent, so the kernel's per-(row, sub) gate culls
+    key_shift = _key_shift(cs)
+    mbits = max(0, key_shift - 3)
+    box = cs_set.super_box
+    valid_s = box[:, 0] <= box[:, 3]
+    glo = [torch.where(valid_s, box[:, i], float("inf")).min() for i in range(3)]
+    ghi = [torch.where(valid_s, box[:, 3 + i], float("-inf")).max() for i in range(3)]
+    bpa = mbits // 3  # Morton bits per axis
+    top = float(2 ** bpa - 1)
+
+    def qb(x, lo, hi):
+        return torch.clamp((x - lo) / torch.clamp_min(hi - lo, 1e-9) * top, 0.0, top).to(torch.int32)
+
+    qx, qy, qz = qb(ox, glo[0], ghi[0]), qb(oy, glo[1], ghi[1]), qb(oz, glo[2], ghi[2])
+    morton = torch.zeros_like(qx)
+    for b in range(bpa):
+        morton = (morton | (((qx >> b) & 1) << (3 * b)) | (((qy >> b) & 1) << (3 * b + 1))
+                  | (((qz >> b) & 1) << (3 * b + 2)))
+    octant = ((dx < 0).to(torch.int32) | ((dy < 0).to(torch.int32) << 1)
+              | ((dz < 0).to(torch.int32) << 2))
+    okey = ((octant << mbits) | morton) if key_shift >= 3 else torch.zeros_like(morton)
+    sentinel = cs << key_shift
+    key = torch.where(cand < cs, (cand << key_shift) | okey[:, None], sentinel).reshape(p)
+    pad = lambda x, fill: torch.cat([x, x.new_full((p_pad - p,), fill)])
+    sk, sidx = _stable_sort(pad(key, sentinel), pad(_arange(p, cand), p))
+
+    # filler-padded destinations: every super's pair run is padded to CHUNK
+    # multiples so each chunk belongs to exactly one super
+    start = torch.searchsorted(sk, (_arange(cs + 1, sk) << key_shift) - 1, right=True, out_int32=True)
+    pos = _arange(p_pad, sk)
+    is_start = torch.cat([sk.new_ones(1, dtype=torch.bool), (sk[1:] >> key_shift) != (sk[:-1] >> key_shift)])
+    run_start = torch.cummax(torch.where(is_start, pos, 0), 0).values
+    prev_start = torch.cat([pos.new_zeros(1), run_start[:-1]])
+    prev_len = pos - prev_start  # at a run start: length of the PREVIOUS run
+    v_p = torch.where(is_start & (pos > 0), (-prev_len) % CHUNK, 0)
+    cum_pad = torch.cumsum(v_p, 0, dtype=torch.int32)
+    d_p = pos + cum_pad  # padded destination of each pair (ascending)
+
+    cp_at = cum_pad[torch.clamp_max(start, p_pad - 1).long()]
+    d_c = start + cp_at  # (Cs+1,) padded start of each super's region
+    len_c = start[1:] - start[:-1]
+    pad_c = (-len_c) % CHUNK
+    gap_start = d_c[:cs] + len_c
+    f = -(-(cs * (CHUNK - 1)) // CHUNK) * CHUNK  # filler budget (CHUNK multiple)
+    d_len = p_pad + f
+    jj = _arange(CHUNK - 1, sk)[None, :]
+    fill_key = torch.where(jj < pad_c[:, None], gap_start[:, None] + jj, 2 ** 30).reshape(-1)
+    fill_key = torch.cat([fill_key, fill_key.new_full((f - fill_key.shape[0],), 2 ** 30)])
+    _, fidx = _stable_sort(torch.cat([d_p, fill_key]), torch.cat([sidx, sidx.new_full((f,), p_pad)]))
+
+    # per-pair ray payloads; pads and fillers ride as (o=0, d=+x, tl=0)
+    real = fidx < p
+    ray = torch.where(real, fidx // kc, 0).long()
+    b2 = d_len // CHUNK
+    ride = lambda a, fill: torch.where(real, a[ray], fill).reshape(b2, ROWS, 128)
+    pairs = (ride(ox, 0.0), ride(oy, 0.0), ride(oz, 0.0),
+             ride(dx, 1.0), ride(dy, 0.0), ride(dz, 0.0), ride(tl, 0.0))
+
+    # chunk b sits in the region of the super whose padded start is the last
+    # one <= CHUNK*b (the sentinel region maps to Cs)
+    block_cluster = torch.searchsorted(d_c, _arange(b2, d_c) * CHUNK, right=True, out_int32=True) - 1
+    block_cluster = torch.clamp(torch.clamp_max(block_cluster, cs), 0, cs)
+    return PairJoin(sidx, fidx, pairs, block_cluster)
+
+
+# --------------------------------------------------------------------------
+# Phase 3: the Möller-Trumbore kernel and its plain twin
+# --------------------------------------------------------------------------
+
+
+def mt_chunks_reference(block_cluster, super_geom, super_sbox, ox, oy, oz, dx, dy, dz, tl,
+                        any_hit: bool):
+    """Plain PyTorch twin of ``csrc/wave2_mt.cu`` (and of the TPU
+    ``_mt_kernel``): vectorized over (chunk, 8 triangle slots, row, lane).
+    Returns (t, tri, u, v, done), each (B2, ROWS, 128)."""
+    cs = super_geom.shape[0]
+    k = super_geom.shape[1] // SUB_PER_SUPER
+    live = (block_cluster < cs)[:, None, None]
+    c = torch.clamp(block_cluster, 0, cs - 1).long()
+    geom = super_geom[c]  # (B2, 8K, 16)
+    sbox = super_sbox[c]  # (B2, 8, 8)
+    ah = (tl < 0.0)[:, None]  # any-hit lanes, (B2, 1, R, 128)
+    tla = torch.abs(tl)
+    mask = tla > 0.0  # filler / pad lanes can never register a hit
+
+    # (B2, R, 8 subs, 128) slab gate; a sub opens for the whole row of 128
+    e = lambda a: a[:, :, None, :]
+    sb = lambda q: sbox[:, None, :, q, None]
+    ix, iy, iz = _inv(dx), _inv(dy), _inv(dz)
+    t1x, t2x = (sb(0) - e(ox)) * e(ix), (sb(3) - e(ox)) * e(ix)
+    t1y, t2y = (sb(1) - e(oy)) * e(iy), (sb(4) - e(oy)) * e(iy)
+    t1z, t2z = (sb(2) - e(oz)) * e(iz), (sb(5) - e(oz)) * e(iz)
+    bmin = torch.maximum(torch.maximum(torch.minimum(t1x, t2x), torch.minimum(t1y, t2y)),
+                         torch.minimum(t1z, t2z))
+    bmax = torch.minimum(torch.minimum(torch.maximum(t1x, t2x), torch.maximum(t1y, t2y)),
+                         torch.maximum(t1z, t2z))
+    sub_hit = (bmax >= torch.clamp_min(bmin, 0.0)) & (bmin < e(tla)) & e(mask)
+    row_open = sub_hit.any(-1)  # (B2, R, 8)
+
+    # running best per (triangle slot x pair): dim 1 is the slot
+    r = lambda a: a[:, None]
+    bt = r(tla).expand(-1, 8, -1, -1).clone()
+    btid = torch.full_like(bt, -1.0)
+    bu = torch.zeros_like(bt)
+    bv = torch.zeros_like(bt)
+    rox, roy, roz, rdx, rdy, rdz = r(ox), r(oy), r(oz), r(dx), r(dy), r(dz)
+    for s in range(SUB_PER_SUPER):
+        gate = row_open[:, None, :, s, None]  # (B2, 1, R, 1)
+        for g in range(0, k, 8):
+            rows = geom[:, s * k + g: s * k + g + 8]  # (B2, 8, 16)
+            col = lambda q: rows[:, :, q, None, None]  # (B2, 8, 1, 1)
+            v0x, v0y, v0z = col(0), col(1), col(2)
+            e1x, e1y, e1z = col(3), col(4), col(5)
+            e2x, e2y, e2z = col(6), col(7), col(8)
+            tid = col(9)
+            px = rdy * e2z - rdz * e2y
+            py = rdz * e2x - rdx * e2z
+            pz = rdx * e2y - rdy * e2x
+            det = e1x * px + e1y * py + e1z * pz
+            okd = torch.abs(det) > TRI_EPS
+            inv_det = 1.0 / torch.where(okd, det, 1.0)
+            tx, ty, tz = rox - v0x, roy - v0y, roz - v0z
+            uu = (tx * px + ty * py + tz * pz) * inv_det
+            qx = ty * e1z - tz * e1y
+            qy = tz * e1x - tx * e1z
+            qz = tx * e1y - ty * e1x
+            vv = (rdx * qx + rdy * qy + rdz * qz) * inv_det
+            tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+            hit = (gate & okd & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0)
+                   & (tt > HIT_EPS) & (tid >= 0.0) & (tt < bt))
+            tid_b = tid.expand_as(bt)
+            if any_hit:
+                bt = torch.where(hit, 0.0, bt)
+                btid = torch.where(hit, tid_b, btid)
+            else:
+                # any-hit LANES collapse to t=0 on a hit
+                bt = torch.where(hit, torch.where(ah, 0.0, tt), bt)
+                btid = torch.where(hit, tid_b, btid)
+                bu = torch.where(hit, uu, bu)
+                bv = torch.where(hit, vv, bv)
+
+    # fold the 8 slots: min t, ties by lowest tri id
+    got = btid >= 0.0
+    t_row = torch.where(got, bt, BIGF).amin(1)
+    w = got & (bt == t_row[:, None])
+    tid_row = torch.where(w, btid, BIGF).amin(1)
+    w = w & (btid == tid_row[:, None])
+    u_row = torch.where(w, bu, -BIGF).amax(1)
+    v_row = torch.where(w, bv, -BIGF).amax(1)
+    any_row = live & (tid_row < BIGF)
+    t_out = torch.where(any_row, torch.minimum(t_row, tla), tla)
+    tri_out = torch.where(any_row, tid_row, -1.0).to(torch.int32)
+    u_out = torch.where(any_row, u_row, 0.0)
+    v_out = torch.where(any_row, v_row, 0.0)
+    done_out = torch.where(live, mask, False).to(torch.int32)
+    return t_out, tri_out, u_out, v_out, done_out
+
+
+def mt_chunks(block_cluster, super_geom, super_sbox, ox, oy, oz, dx, dy, dz, tl, any_hit: bool):
+    """Möller-Trumbore over sort-joined pair chunks.  CPU tensors take the
+    plain twin; CUDA tensors launch ``csrc/wave2_mt.cu`` (counted in
+    ``mt_chunks.launches``) or raise."""
+    pairs = (ox, oy, oz, dx, dy, dz, tl)
+    dev = ox.device
+    if dev.type == "cpu":
+        return mt_chunks_reference(block_cluster, super_geom, super_sbox, *pairs, any_hit)
+    if dev.type != "cuda":
+        raise ValueError(f"mt_chunks: unsupported device {dev}")
+    b2 = block_cluster.shape[0]
+    cs, rows8k, lanes = super_geom.shape
+    k = rows8k // SUB_PER_SUPER
+    ok = (
+        block_cluster.dtype == torch.int32 and block_cluster.dim() == 1
+        and super_geom.dtype == torch.float32 and lanes == 16 and k % 8 == 0 and 0 < k <= 128
+        and super_sbox.dtype == torch.float32 and tuple(super_sbox.shape) == (cs, SUB_PER_SUPER, 8)
+        and all(a.dtype == torch.float32 and tuple(a.shape) == (b2, ROWS, 128) for a in pairs)
+        and all(a.device == dev and a.is_contiguous()
+                for a in (block_cluster, super_geom, super_sbox) + pairs)
+    )
+    if not ok:
+        raise ValueError("mt_chunks: inputs do not match the kernel's dtypes, shapes, device or layout")
+    from .cuda_build import load_kernel_library
+
+    lib = load_kernel_library("wave2_mt")
+    fn = lib.wave2_mt_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    t = torch.empty((b2, ROWS, 128), dtype=torch.float32, device=dev)
+    tri = torch.empty((b2, ROWS, 128), dtype=torch.int32, device=dev)
+    u = torch.empty_like(t)
+    v = torch.empty_like(t)
+    done = torch.empty_like(tri)
+    ptr = lambda a: ctypes.c_void_p(a.data_ptr())
+    rc = fn(ptr(block_cluster), ptr(super_geom), ptr(super_sbox), *(ptr(a) for a in pairs),
+            ptr(t), ptr(tri), ptr(u), ptr(v), ptr(done), b2, cs, k, int(any_hit),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"wave2_mt kernel launch failed: cudaError {rc}")
+    mt_chunks.launches += 1
+    return t, tri, u, v, done
+
+
+mt_chunks.launches = 0
+
+
+# --------------------------------------------------------------------------
+# One round, the continuation loop and the windowed driver
+# --------------------------------------------------------------------------
+
+
+def _round(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tl, cursor, kc: int, any_hit: bool):
+    """Extraction + join + MT + winner select on one (N,) wavefront.
+    Returns (t, tri, u, v, new_cursor, unresolved); t == |tl| where no hit."""
+    n = ox.shape[0]
+    cs = cs_set.num_supers
+    ah_ray = tl < 0.0
+    cand, remaining = _p1_extract(cs_set, ox, oy, oz, dx, dy, dz, tl, cursor, kc)
+    join = _pair_join(cs_set, cand, ox, oy, oz, dx, dy, dz, tl)
+    outs = mt_chunks(join.block_cluster, cs_set.super_geom, cs_set.super_sbox, *join.pairs,
+                     any_hit=any_hit)
+    # back to ray-major pair order (pads and fillers carry idx >= p -> tail)
+    _, t_p, tri_p, u_p, v_p, done_p = _stable_sort(join.fidx, *(o.reshape(-1) for o in outs))
+    p = n * kc
+    t_p, tri_p, u_p, v_p, done_p = (x[:p].reshape(n, kc) for x in (t_p, tri_p, u_p, v_p, done_p))
+
+    # dense winner select: min t, ties to the lowest tri id
+    slot_valid = cand < cs
+    hit = slot_valid & (done_p > 0) & (tri_p >= 0)
+    tkey = torch.where(hit, t_p, float("inf"))
+    best_t = tkey.amin(1)
+    won = tkey == best_t[:, None]
+    best_tri = torch.where(won, tri_p, 2 ** 31 - 1).amin(1)
+    final = won & (tri_p == best_tri[:, None])
+    got_hit = torch.isfinite(best_t)
+    best_u = torch.where(got_hit, torch.where(final, u_p, float("-inf")).amax(1), 0.0)
+    best_v = torch.where(got_hit, torch.where(final, v_p, float("-inf")).amax(1), 0.0)
+    best_tri = torch.where(got_hit, best_tri, -1)
+    t_round = torch.where(got_hit, best_t, torch.abs(tl))
+
+    unproc = slot_valid & (done_p == 0)
+    any_unproc = unproc.any(1)
+    min_unproc = torch.where(unproc, cand, cs + 1).amin(1)
+    max_extracted = torch.where(slot_valid, cand, -1).amax(1)
+    new_cursor = torch.where(any_unproc, min_unproc - 1, torch.maximum(max_extracted, cursor))
+    unresolved = any_unproc | (remaining > 0)
+    if any_hit:
+        unresolved = unresolved & (best_tri < 0)
+    unresolved = unresolved & ~(ah_ray & (best_tri >= 0))
+    return t_round, best_tri, best_u, best_v, new_cursor, unresolved
+
+
+def _window_trace(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tm, kc: int, any_hit: bool, max_iters: int):
+    """Round + compacted-continuation loop on one padded window.  ``tm`` may
+    be sign-encoded (negative = occlusion query with limit |tm|)."""
+    n = ox.shape[0]
+    cursor0 = torch.full((n,), -1, dtype=torch.int32, device=ox.device)
+    t, tri, u, v, cur, unres = _round(cs_set, ox, oy, oz, dx, dy, dz, tm, cursor0, kc, any_hit)
+    nsub = min(NSUB, n)
+    for _ in range(max_iters):
+        if not bool(unres.any()):  # one host sync per continuation round
+            break
+        # compact up to nsub unresolved rays (ascending index, stable)
+        sel = torch.sort((~unres).to(torch.int32), stable=True).indices[:nsub]
+        live = unres[sel]
+        g = lambda a: a[sel]
+        cap = torch.where(live, torch.where(g(tm) < 0.0, -g(t), g(t)), 0.0)
+        t_r, tri_r, u_r, v_r, cur_r, unres_r = _round(
+            cs_set, g(ox), g(oy), g(oz), g(dx), g(dy), g(dz), cap, g(cur), kc, any_hit)
+        improved = live & (t_r < g(t))
+        idx = sel[live]  # writes for dead lanes are dropped
+        upd = lambda a, new: a.index_copy_(0, idx, torch.where(improved, new, g(a))[live])
+        upd(u, u_r)
+        upd(v, v_r)
+        upd(tri, tri_r)
+        upd(t, t_r)
+        cur.index_copy_(0, idx, cur_r[live])
+        unres.index_copy_(0, idx, (live & unres_r)[live])
+    return t, tri, u, v, unres
+
+
+def _wave2_trace(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tm, kc: int, any_hit: bool, max_iters: int):
+    """Full-wavefront trace: rays with work are compacted to the front with
+    one stable sort and traced in windows of SUBWAVE rays, so the cost
+    follows the live ray count down the bounce ladder."""
+    n0 = ox.shape[0]
+    s = min(SUBWAVE, -(-n0 // CHUNK) * CHUNK)
+    n = -(-n0 // s) * s
+    padded = lambda x, fill: torch.cat([x, x.new_full((n - n0,), fill)]) if n != n0 else x
+    wanted = padded(tm, 0.0) != 0.0
+    _, ridx, cox, coy, coz, cdx, cdy, cdz, ctm = _stable_sort(
+        (~wanted).to(torch.int32), _arange(n, ox),
+        padded(ox, 0.0), padded(oy, 0.0), padded(oz, 0.0),
+        padded(dx, 1.0), padded(dy, 0.0), padded(dz, 0.0), padded(tm, 0.0))
+    n_sub = -(-int(wanted.sum().item()) // s)  # one host sync per trace
+
+    t = ctm.clone()
+    tri = torch.full((n,), -1, dtype=torch.int32, device=ox.device)
+    u = torch.zeros_like(t)
+    v = torch.zeros_like(t)
+    ovf = torch.zeros((n,), dtype=torch.bool, device=ox.device)
+    for i in range(n_sub):
+        w = slice(i * s, (i + 1) * s)
+        t[w], tri[w], u[w], v[w], ovf[w] = _window_trace(
+            cs_set, cox[w], coy[w], coz[w], cdx[w], cdy[w], cdz[w], ctm[w], kc, any_hit, max_iters)
+
+    # back to caller order
+    back = lambda a: torch.empty_like(a).index_copy_(0, ridx.long(), a)[:n0]
+    return back(t), back(tri), back(u), back(v), back(ovf)
+
+
+def _rays(origin: Vec3, direction: Vec3, t_max):
+    tm = t_max * torch.ones_like(origin.x) if torch.is_tensor(t_max) else torch.full_like(origin.x, t_max)
+    return origin.x, origin.y, origin.z, direction.x, direction.y, direction.z, tm
+
+
+@torch.no_grad()
+def wave2_closest_hit(cs: ClusterSet, origin: Vec3, direction: Vec3, t_max, kc: int = None,
+                      max_iters: int = 64, with_attrs: bool = False):
+    """Closest hit. Returns (t, tri_id, u, v, overflow) — exact; overflow
+    marks rays still unresolved after ``max_iters`` continuation rounds.
+    ``with_attrs=True`` also returns the winner's interpolated shading
+    frame (``interp_tri_attr``)."""
+    kc = min(kc or KC, cs.num_supers)
+    t, tri, u, v, overflow = _wave2_trace(cs, *_rays(origin, direction, t_max), kc, False, max_iters)
+    t = torch.where(tri < 0, BIG, t)
+    if with_attrs:
+        return t, tri, u, v, overflow, interp_tri_attr(cs, tri, u, v)
+    return t, tri, u, v, overflow
+
+
+@torch.no_grad()
+def wave2_any_hit(cs: ClusterSet, origin: Vec3, direction: Vec3, t_max, kc: int = None, max_iters: int = 64):
+    """Any-hit occlusion query. Returns (occluded, overflow)."""
+    kc = min(kc or KC, cs.num_supers)
+    _, tri, _, _, overflow = _wave2_trace(cs, *_rays(origin, direction, t_max), kc, True, max_iters)
+    return tri >= 0, overflow
+
+
+def interp_tri_attr(cs: ClusterSet, tri, u, v):
+    """Winner shading frame from the input-order attribute table: one row
+    gather + barycentric interpolation.  Returns (nx, ny, nz, tex_u, tex_v,
+    material_id_f32); miss lanes (tri < 0) return zeros."""
+    if cs.tri_attr is None:
+        return None
+    a = cs.tri_attr[torch.clamp(tri, 0, cs.tri_attr.shape[0] - 1).long()]  # (N, 16)
+    w = 1.0 - u - v
+    nx = a[:, 0] * w + a[:, 3] * u + a[:, 6] * v
+    ny = a[:, 1] * w + a[:, 4] * u + a[:, 7] * v
+    nz = a[:, 2] * w + a[:, 5] * u + a[:, 8] * v
+    tu = a[:, 9] * w + a[:, 11] * u + a[:, 13] * v
+    tv = a[:, 10] * w + a[:, 12] * u + a[:, 14] * v
+    hit = (tri >= 0).to(torch.float32)
+    return (nx * hit, ny * hit, nz * hit, tu * hit, tv * hit, a[:, 15] * hit)

@@ -1,0 +1,44 @@
+"""Film: HDR accumulation buffers (port of ``raytracer_tpu/render/film.py``).
+
+A primary HDR sum plus a secondary sum fed every second pass (the adaptive
+renderer's error estimate).  The film is a NamedTuple of (H, W, 3) float32
+tensors; accumulation returns a new film, as in the reference.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..math.vec import Vec3
+
+
+class Film(NamedTuple):
+    sum: torch.Tensor  # (H, W, 3) float32 accumulated radiance
+    secondary_sum: torch.Tensor  # (H, W, 3) float32 every-2nd-pass sum
+    num_passes: int
+    num_secondary_passes: int
+
+
+def make_film(width: int, height: int, device) -> Film:
+    z = lambda: torch.zeros((height, width, 3), dtype=torch.float32, device=device)
+    return Film(sum=z(), secondary_sum=z(), num_passes=0, num_secondary_passes=0)
+
+
+def accumulate_frame(film: Film, radiance: Vec3, use_secondary: bool) -> Film:
+    """Accumulate a full-frame wavefront result (pixel-ordered, flattened);
+    even passes also feed the secondary buffer."""
+    h, w = film.sum.shape[:2]
+    frame = torch.stack([radiance.x.reshape(h, w), radiance.y.reshape(h, w), radiance.z.reshape(h, w)], -1)
+    return Film(
+        sum=film.sum + frame,
+        secondary_sum=film.secondary_sum + frame if use_secondary else film.secondary_sum,
+        num_passes=film.num_passes + 1,
+        num_secondary_passes=film.num_secondary_passes + int(use_secondary),
+    )
+
+
+def average_radiance(film: Film) -> torch.Tensor:
+    """(H, W, 3) mean radiance."""
+    return film.sum / float(max(film.num_passes, 1))

@@ -1,0 +1,155 @@
+"""Frame-loop driver (port of ``raytracer_tpu/render/renderer.py``).
+
+One render pass runs over the full pixel wavefront:
+
+    pixel grid -> per-pass AA jitter -> camera rays -> integrator -> film
+
+Every sample is a pure function of (pixel id, pass, dim, seed), so renders
+are reproducible and match the JAX package's sample streams bit for bit.
+``Viewport.image()``, postprocess, checkpointing and adaptive rendering
+wait (ROADMAP queue 1, item 17).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..integrators.path_tracer import Counters, RenderParams, trace_radiance
+from ..math.sampling import sample_gaussian2
+from ..sampler.sampler import (
+    blue_noise_for_pixels,
+    halton_frame_vector,
+    hash_u32,
+    make_stream,
+    u32_to_unit_float,
+)
+from ..scene.camera import generate_rays
+from ..scene.types import Camera, SceneData, SceneMeta
+from .film import Film, accumulate_frame, average_radiance, make_film
+
+
+@dataclass(frozen=True)
+class ViewportParams:
+    """Frame-level knobs."""
+
+    width: int = 256
+    height: int = 256
+    anti_aliasing_spread: float = 0.5
+    use_low_discrepancy: bool = True
+    use_blue_noise: bool = True
+    seed: int = 0
+
+
+def pixel_grid(width: int, height: int, rows: int | None = None, row0: int = 0, *, device):
+    """Flattened pixel centers (film coords x right, y up) and global pixel
+    ids for a ``rows``-row band starting at ``row0``."""
+    rows = height if rows is None else rows
+    ys = torch.arange(rows, dtype=torch.int32, device=device)[:, None].expand(rows, width) + row0
+    xs = torch.arange(width, dtype=torch.int32, device=device)[None, :].expand(rows, width)
+    pixel_ids = (ys * width + xs).reshape(-1)
+    cx = (xs.reshape(-1).to(torch.float32) + 0.5) / width
+    cy = 1.0 - (ys.reshape(-1).to(torch.float32) + 0.5) / height
+    return cx, cy, pixel_ids
+
+
+def trace_rows(scene: SceneData, meta: SceneMeta, cam: Camera, pass_idx: int, halton, vp: ViewportParams,
+               params: RenderParams, rows: int | None = None, row0: int = 0):
+    """Camera rays + integrator for one band of pixel rows."""
+    dev = cam.tan_half_fov.device
+    cx, cy, pixel_ids = pixel_grid(vp.width, vp.height, rows, row0, device=dev)
+    # per-pass Gaussian AA jitter shared by all pixels
+    u32 = lambda x: torch.tensor(x & 0xFFFFFFFF, dtype=torch.int64, device=dev)
+    u1 = u32_to_unit_float(hash_u32(u32(pass_idx * 2654435761 + vp.seed)))
+    u2 = u32_to_unit_float(hash_u32(u32(pass_idx * 0x9E3779B9 + vp.seed + 7)))
+    jx, jy = sample_gaussian2(torch.clamp_min(u1, 1e-6), u2)
+    spread = vp.anti_aliasing_spread
+    cx = cx + jx * (spread / vp.width)
+    cy = cy + jy * (spread / vp.height)
+
+    blue = None
+    if halton is not None and vp.use_blue_noise:
+        blue = blue_noise_for_pixels(pixel_ids.to(torch.int64), vp.width)
+    stream = make_stream(pixel_ids.to(torch.int64), pass_idx, seed=vp.seed, halton=halton, blue=blue)
+    rays, stream = generate_rays(cam, cx, cy, stream)
+    return trace_radiance(scene, meta, rays, stream, params)
+
+
+def render_pass(scene: SceneData, meta: SceneMeta, cam: Camera, film: Film, pass_idx: int, halton,
+                vp: ViewportParams, params: RenderParams):
+    """One full-frame accumulation pass."""
+    radiance, counters = trace_rows(scene, meta, cam, pass_idx, halton, vp, params)
+    return accumulate_frame(film, radiance, use_secondary=(pass_idx % 2 == 0)), counters
+
+
+def render_passes(scene: SceneData, meta: SceneMeta, cam: Camera, film: Film, pass0: int, haltons,
+                  vp: ViewportParams, params: RenderParams, n_passes: int):
+    """``n_passes`` accumulation passes; ``haltons`` is (n_passes, dims)
+    stacked per-pass Halton vectors or None.  Counters are summed."""
+    total = None
+    for i in range(n_passes):
+        film, counters = render_pass(scene, meta, cam, film, pass0 + i,
+                                     haltons[i] if haltons is not None else None, vp, params)
+        total = counters if total is None else Counters(*(a + b for a, b in zip(total, counters)))
+    return film, total
+
+
+class Viewport:
+    """Stateful orchestration: film + pass counter.
+
+        vp = Viewport(scene, meta, cam, ViewportParams(512, 512), device="cuda")
+        vp.render(n_passes=16)
+        hdr = vp.radiance()         # (H, W, 3) float32 mean radiance
+    """
+
+    def __init__(self, scene: SceneData, meta: SceneMeta, cam: Camera,
+                 vp_params: ViewportParams = ViewportParams(),
+                 render_params: RenderParams = RenderParams(), *, device):
+        self.device = torch.device(device)
+        on = lambda t: t.device.type == self.device.type
+        if not (on(scene.prims.kind) and on(cam.tan_half_fov)):
+            raise ValueError(f"scene and camera must live on {self.device}")
+        self.scene = scene
+        self.meta = meta
+        self.cam = cam
+        self.vp_params = vp_params
+        self.render_params = render_params
+        self.reset()
+
+    def reset(self):
+        """Restart accumulation."""
+        self.film = make_film(self.vp_params.width, self.vp_params.height, self.device)
+        self.total_rays = 0.0
+        self.total_shadow_rays = 0.0
+        self.total_overflow = 0.0
+
+    def render(self, n_passes: int = 1):
+        """Run ``n_passes`` accumulation passes."""
+        pass_idx = self.film.num_passes
+        halton = None
+        if self.vp_params.use_low_discrepancy:
+            halton = torch.as_tensor(
+                np.stack([halton_frame_vector(pass_idx + i) for i in range(n_passes)]), device=self.device
+            )
+        self.film, counters = render_passes(
+            self.scene, self.meta, self.cam, self.film, pass_idx, halton,
+            self.vp_params, self.render_params, n_passes,
+        )
+        self.total_rays += float(counters.num_rays)
+        self.total_shadow_rays += float(counters.num_shadow_rays)
+        self.total_overflow += float(counters.num_overflow)
+        return self
+
+    def radiance(self) -> np.ndarray:
+        return average_radiance(self.film).cpu().numpy()
+
+    def progress(self) -> dict:
+        return {
+            "passes_finished": self.film.num_passes,
+            "total_rays": self.total_rays,
+            "total_shadow_rays": self.total_shadow_rays,
+            # nonzero means the traversal truncated some rays
+            "total_traversal_overflow": self.total_overflow,
+        }

@@ -1,0 +1,82 @@
+"""Camera ray generation (port of ``raytracer_tpu/scene/camera.py``).
+
+Film coords in [0,1)^2 map to bipolar [-1,1]; ``dir = forward +
+tanHalfFoV * (right * bx * aspect + up * by)``, with optional barrel
+distortion and thin-lens DoF (circular bokeh).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..math import sampling
+from ..math.transform import RigidTransform
+from ..math.vec import Vec3, normalize
+from ..sampler.sampler import SampleStream, next_1d, next_3d
+from .types import Camera
+
+
+class Rays(NamedTuple):
+    """A wavefront of rays (SoA). Direction is normalized."""
+
+    origin: Vec3
+    dir: Vec3
+
+
+def make_camera(
+    transform: RigidTransform,
+    fov_deg: float = 60.0,
+    aspect: float = 1.0,
+    enable_dof: bool = False,
+    aperture: float = 0.1,
+    focal_distance: float = 2.0,
+    enable_distortion: bool = False,
+    distortion_const: float = 0.01,
+    distortion_variable: float = 0.0,
+    *,
+    device,
+) -> Camera:
+    f32 = lambda v: torch.tensor(np.float32(v), device=device)
+    rows = transform.rot.astype(np.float32)
+    mkvec = lambda r: Vec3(f32(r[0]), f32(r[1]), f32(r[2]))
+    return Camera(
+        origin=mkvec(transform.translation.astype(np.float32)),
+        right=mkvec(rows[0]), up=mkvec(rows[1]), forward=mkvec(rows[2]),
+        tan_half_fov=f32(np.tan(np.deg2rad(fov_deg) * 0.5)),
+        aspect=f32(aspect),
+        aperture=f32(aperture),
+        focal_distance=f32(focal_distance),
+        distortion_const=f32(distortion_const),
+        distortion_variable=f32(distortion_variable),
+        enable_dof=enable_dof,
+        enable_distortion=enable_distortion,
+    )
+
+
+def generate_rays(cam: Camera, coords_x, coords_y, stream: SampleStream):
+    """coords in [0,1)^2 (x right, y up) -> world-space camera rays."""
+    bx = 2.0 * coords_x - 1.0
+    by = 2.0 * coords_y - 1.0
+
+    if cam.enable_distortion:
+        u, stream = next_1d(stream)
+        r2 = bx * bx + by * by
+        factor = r2 * (cam.distortion_const + cam.distortion_variable * u)
+        bx = bx + bx * factor
+        by = by + by * factor
+
+    right, up, forward = cam.right, cam.up, cam.forward
+    origin = Vec3(*(c.expand(bx.shape) for c in cam.origin))
+    direction = forward + (right * (bx * cam.aspect) + up * by) * cam.tan_half_fov
+
+    if cam.enable_dof:
+        focus = origin + direction * cam.focal_distance
+        u1, u2, _u3, stream = next_3d(stream)
+        px, py = sampling.sample_circle(u1, u2)
+        origin = origin + right * (px * cam.aperture) + up * (py * cam.aperture)
+        direction = focus - origin
+
+    return Rays(origin=origin, dir=normalize(direction, eps=1e-20)), stream

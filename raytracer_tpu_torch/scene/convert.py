@@ -1,0 +1,55 @@
+"""Carry a scene from the JAX package into the port, field by field.
+
+``scene_from_numpy`` takes the reference's ``SceneData`` / ``ClusterSet``
+/ ``Camera`` / ``SceneMeta`` (or any NamedTuple of them) whose array leaves
+were mapped to numpy, and builds the port's type of the same name from the
+fields the port keeps.  Fields the port does not hold yet (textures,
+decals, instances, environment maps) must be empty: a scene that uses them
+raises instead of losing them.  This lets a test run one module of each
+package on bit-identical data.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..math.vec import Vec3
+from . import types as T
+from .clusters import ClusterSet
+
+_PORT_TYPES = {
+    cls.__name__: cls
+    for cls in (T.SceneData, T.Primitives, T.Triangles, T.Materials, T.Lights,
+                T.Rot3, T.Camera, T.SceneMeta, Vec3, ClusterSet)
+}
+# reference fields the port does not hold yet: they must be empty / off
+_WAITING = ("textures", "env_dist", "decals", "instances", "mesh_geoms",
+            "enable_motion_blur", "bokeh_shape")
+
+
+def _field_names(cls) -> tuple:
+    if dataclasses.is_dataclass(cls):
+        return tuple(f.name for f in dataclasses.fields(cls))
+    return cls._fields
+
+
+def scene_from_numpy(obj, device):
+    """Port-side copy of a reference object whose arrays are numpy."""
+    if obj is None or isinstance(obj, (bool, int, float, str, tuple)) and not hasattr(obj, "_fields"):
+        return obj
+    if isinstance(obj, (np.ndarray, np.generic)):
+        return torch.as_tensor(np.array(obj)).to(device)
+    cls = _PORT_TYPES.get(type(obj).__name__)
+    if cls is None:
+        raise TypeError(f"no port type for {type(obj).__name__}")
+    for name in _WAITING:
+        if getattr(obj, name, None):
+            raise NotImplementedError(
+                f"scene field '{name}' is not ported yet (ROADMAP queue 0)"
+            )
+    if cls is T.SceneMeta:
+        return T.SceneMeta(**{f: getattr(obj, f) for f in _field_names(cls)})
+    return cls(**{f: scene_from_numpy(getattr(obj, f), device) for f in _field_names(cls)})

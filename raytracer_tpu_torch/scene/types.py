@@ -1,0 +1,181 @@
+"""Device-side scene representation: structure-of-arrays NamedTuples of
+tensors (port of ``raytracer_tpu/scene/types.py``).
+
+Field names follow the reference so ``scene/convert.py`` can carry a JAX
+scene across by name.  This slice keeps the fields the MIS path tracer
+reads on analytic prims and baked triangle meshes; textures, decals,
+instances, motion blur and spectral dispersion wait (ROADMAP).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from ..math.vec import Vec3
+
+# --- enums ----------------------------------------------------------------------
+PRIM_SPHERE = 0
+PRIM_BOX = 1
+PRIM_RECT = 2
+
+BSDF_NULL = 0
+BSDF_DIFFUSE = 1
+BSDF_ROUGH_DIFFUSE = 2
+BSDF_DIELECTRIC = 3
+BSDF_ROUGH_DIELECTRIC = 4
+BSDF_METAL = 5
+BSDF_ROUGH_METAL = 6
+BSDF_PLASTIC = 7
+BSDF_ROUGH_PLASTIC = 8
+
+BSDF_NAMES = {
+    "null": BSDF_NULL,
+    "diffuse": BSDF_DIFFUSE,
+    "roughDiffuse": BSDF_ROUGH_DIFFUSE,
+    "dielectric": BSDF_DIELECTRIC,
+    "roughDielectric": BSDF_ROUGH_DIELECTRIC,
+    "metal": BSDF_METAL,
+    "roughMetal": BSDF_ROUGH_METAL,
+    "plastic": BSDF_PLASTIC,
+    "roughPlastic": BSDF_ROUGH_PLASTIC,
+}
+
+LIGHT_AREA = 0
+LIGHT_BACKGROUND = 1
+LIGHT_POINT = 2
+LIGHT_SPOT = 3
+LIGHT_DIRECTIONAL = 4
+
+SHAPE_RECT = 0
+SHAPE_SPHERE = 1
+SHAPE_BOX = 2
+
+# roughness below this threshold => the rough BSDF acts as its specular twin
+SPECULAR_ROUGHNESS_THRESHOLD = 0.005
+
+INVALID_ID = -1
+
+
+class Rot3(NamedTuple):
+    """Rotation as three world-space basis rows (row-vector convention)."""
+
+    r0: Vec3
+    r1: Vec3
+    r2: Vec3
+
+    def to_world(self, v: Vec3) -> Vec3:
+        return self.r0 * v.x + self.r1 * v.y + self.r2 * v.z
+
+    def to_local(self, v: Vec3) -> Vec3:
+        from ..math.vec import dot
+
+        return Vec3(dot(v, self.r0), dot(v, self.r1), dot(v, self.r2))
+
+
+class Primitives(NamedTuple):
+    """Analytic traceable objects, SoA over P prims."""
+
+    kind: torch.Tensor  # (P,) int32: PRIM_*
+    rot: Rot3
+    trans: Vec3
+    param: Vec3  # sphere: (radius,-,-); box/rect: half-size
+    material_id: torch.Tensor  # (P,) int32
+    light_id: torch.Tensor  # (P,) int32, INVALID_ID unless this prim IS a light
+    uv_scale: Vec3  # per-object texture-coordinate scale (u, v, 1)
+
+    @property
+    def count(self) -> int:
+        return self.kind.shape[0]
+
+
+class Triangles(NamedTuple):
+    """World-space triangle soup in BVH leaf order, SoA over T tris."""
+
+    v0: Vec3
+    e1: Vec3
+    e2: Vec3
+    n0: Vec3
+    n1: Vec3
+    n2: Vec3
+    uv0_u: torch.Tensor
+    uv0_v: torch.Tensor
+    uv1_u: torch.Tensor
+    uv1_v: torch.Tensor
+    uv2_u: torch.Tensor
+    uv2_v: torch.Tensor
+    material_id: torch.Tensor  # (T,) int32
+
+    @property
+    def count(self) -> int:
+        return self.material_id.shape[0]
+
+
+class Materials(NamedTuple):
+    """PBR material table, SoA over M."""
+
+    bsdf: torch.Tensor  # (M,) int32: BSDF_*
+    base_color: Vec3
+    emission: Vec3
+    roughness: torch.Tensor
+    metalness: torch.Tensor
+    ior: torch.Tensor
+    k: torch.Tensor  # extinction for conductors
+
+
+class Lights(NamedTuple):
+    """All lights, SoA over L."""
+
+    kind: torch.Tensor  # (L,) int32: LIGHT_*
+    color: Vec3
+    rot: Rot3
+    trans: Vec3
+    shape_kind: torch.Tensor  # (L,) int32 SHAPE_*
+    shape_param: Vec3  # rect/box: half-size; sphere: (radius,-,-)
+    area: torch.Tensor
+    cos_angle: torch.Tensor  # spot/directional cone cosine
+    is_delta: torch.Tensor  # bool
+    is_finite: torch.Tensor  # bool
+
+
+@dataclasses.dataclass(frozen=True)
+class Camera:
+    """Perspective camera + DoF: 0-d tensors on the scene's device, plus the
+    static feature toggles as plain fields.  Camera motion blur and
+    non-circular bokeh wait (ROADMAP)."""
+
+    origin: Vec3
+    right: Vec3  # transform row 0
+    up: Vec3  # transform row 1
+    forward: Vec3  # transform row 2
+    tan_half_fov: torch.Tensor
+    aspect: torch.Tensor
+    aperture: torch.Tensor
+    focal_distance: torch.Tensor
+    distortion_const: torch.Tensor
+    distortion_variable: torch.Tensor
+    enable_dof: bool = False  # thin lens with a circular aperture
+    enable_distortion: bool = False
+
+
+class SceneData(NamedTuple):
+    """Complete device-side scene."""
+
+    prims: Primitives
+    tris: Optional[Triangles]
+    materials: Materials
+    lights: Lights
+    clusters: object = None  # Optional[ClusterSet] (wave2 mesh traversal)
+
+
+@dataclasses.dataclass(frozen=True)
+class SceneMeta:
+    """Static (hashable) scene metadata used for host-side dispatch."""
+
+    light_kinds: tuple = ()
+    light_is_delta: tuple = ()
+    n_lights: int = 0  # real lights (0 if only the dummy placeholder exists)
+    background_light_index: int = -1
+    scene_radius: float = 30.0

@@ -1,0 +1,101 @@
+"""The slice as a whole: the port's Viewport against the JAX Viewport.
+
+MIS path tracer, depth 6, one pass, seed 0, at 32^2, on the analytic
+Cornell box and on the 2k-triangle bench mesh loaded through both scene
+loaders.  On the CPU the JAX side resolves its traversal to the exact
+``wave`` engine and the port runs wave2 (with its kernel's twin): tri ids
+may differ only on ties, and a path may diverge after one.
+
+Measured on this slice (PR 1): ray counters equal, every pixel within
+atol 1e-4 / rtol 1e-3 (max |diff| ~1.3e-5), means equal to 1e-7.  The
+asserted bounds are tighter than the ISSUE's first ones (0.5% counters,
+98% pixels, 1% mean) but keep room for a tie or two:
+counters within 0.1%, >= 99.5% of pixels within atol 1e-4 / rtol 1e-3,
+mean radiance within 0.1%, all values finite.
+"""
+
+import os
+import sys
+
+import numpy as np
+import pytest
+
+from raytracer_tpu.integrators.path_tracer import RenderParams as RefRenderParams
+from raytracer_tpu.io.scene_loader import load_scene as ref_load_scene
+from raytracer_tpu.math.transform import RigidTransform as RefRigidTransform
+from raytracer_tpu.render.renderer import Viewport as RefViewport, ViewportParams as RefViewportParams
+from raytracer_tpu.scene.camera import make_camera as ref_make_camera
+from raytracer_tpu.scene.presets import cornell_box as ref_cornell_box
+from raytracer_tpu_torch.integrators.path_tracer import RenderParams
+from raytracer_tpu_torch.io.scene_loader import load_scene
+from raytracer_tpu_torch.math.transform import RigidTransform
+from raytracer_tpu_torch.render.renderer import Viewport, ViewportParams
+from raytracer_tpu_torch.scene.camera import make_camera
+from raytracer_tpu_torch.scene.presets import cornell_box, cornell_camera_kw
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
+import bench_mesh  # noqa: E402
+
+SIZE = 32
+
+
+def _cornell():
+    t_kw, c_kw = cornell_camera_kw()
+    ref = (*ref_cornell_box(), ref_make_camera(RefRigidTransform(**t_kw), **c_kw))
+    got = (*cornell_box(device="cpu"), make_camera(RigidTransform(**t_kw), **c_kw, device="cpu"))
+    return ref, got
+
+
+def _bench_mesh(tmp_path, monkeypatch):
+    monkeypatch.setattr(bench_mesh, "BENCH_DIR", str(tmp_path))
+    path = bench_mesh.ensure_scene(2000)
+    return ref_load_scene(path), load_scene(path, device="cpu")
+
+
+@pytest.mark.parametrize("scene_name", ["cornell", "mesh2k"])
+def test_viewport_matches_reference(scene_name, tmp_path, monkeypatch):
+    ref, got = _cornell() if scene_name == "cornell" else _bench_mesh(tmp_path, monkeypatch)
+    rv = RefViewport(*ref, RefViewportParams(SIZE, SIZE, seed=0), RefRenderParams(max_depth=6, mis=True))
+    pv = Viewport(*got, ViewportParams(SIZE, SIZE, seed=0), RenderParams(max_depth=6, mis=True), device="cpu")
+    a = rv.render(1).radiance()
+    b = pv.render(1).radiance()
+    assert b.shape == a.shape == (SIZE, SIZE, 3)
+    assert np.isfinite(b).all()
+    rp, pp = rv.progress(), pv.progress()
+    for key in ("total_rays", "total_shadow_rays"):
+        assert abs(pp[key] - rp[key]) <= 1e-3 * rp[key], (key, pp[key], rp[key])
+    assert pp["passes_finished"] == 1 and pp["total_traversal_overflow"] == 0
+    close = np.isclose(b, a, atol=1e-4, rtol=1e-3).all(-1)
+    assert close.mean() >= 0.995, close.mean()
+    assert abs(b.mean() - a.mean()) <= 1e-3 * abs(a.mean())
+    assert b.mean() > 0
+
+
+def test_viewport_accumulates_passes_like_reference():
+    ref, got = _cornell()
+    rv = RefViewport(*ref, RefViewportParams(16, 16, seed=3), RefRenderParams(max_depth=3, mis=False))
+    pv = Viewport(*got, ViewportParams(16, 16, seed=3), RenderParams(max_depth=3, mis=False), device="cpu")
+    a = rv.render(2).render(1).radiance()
+    b = pv.render(2).render(1).radiance()
+    assert pv.progress()["passes_finished"] == 3
+    np.testing.assert_allclose(b, a, rtol=1e-3, atol=1e-4)
+    assert pv.progress()["total_rays"] == rv.progress()["total_rays"]
+
+
+def test_all_lights_strategy_matches_reference(tmp_path, monkeypatch):
+    """'all'-strategy NEE over the mesh's two lights traces its own shadow
+    queries (scene_occluded -> wave2_any_hit) instead of fusing them."""
+    ref, got = _bench_mesh(tmp_path, monkeypatch)
+    kw = dict(max_depth=3, mis=True, light_strategy="all")
+    rv = RefViewport(*ref, RefViewportParams(16, 16, seed=1), RefRenderParams(**kw))
+    pv = Viewport(*got, ViewportParams(16, 16, seed=1), RenderParams(**kw), device="cpu")
+    a = rv.render(1).radiance()
+    b = pv.render(1).radiance()
+    assert pv.progress()["total_shadow_rays"] == rv.progress()["total_shadow_rays"] > 0
+    assert np.isclose(b, a, atol=1e-4, rtol=1e-3).all(-1).mean() >= 0.995
+
+
+def test_viewport_needs_scene_on_its_device():
+    _, got = _cornell()
+    with pytest.raises(ValueError, match="must live on"):
+        Viewport(*got, device="meta")
