@@ -1,22 +1,42 @@
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch/CUDA port's paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero before the last line):
 
 1. device: needs CUDA; prints the card, its power limit, torch and CUDA.
-2. build: compiles csrc/wave2_mt.cu with nvcc into raytracer_tpu_torch/_build/.
-3. kernel vs twin: on the 200k-triangle bench mesh, one real traversal
+2. build: compiles csrc/wave2_mt.cu, phase2_grid.cu, phase2_stream.cu and
+   add_one.cu with nvcc, all at once, into raytracer_tpu_torch/_build/, and
+   prints what ptxas says of each.
+3. wave2 kernel vs twin: on the 200k-triangle bench mesh, one real traversal
    window (65,536 incoherent rays, kc=16) is joined into pair chunks; the
    CUDA Möller-Trumbore kernel and its plain PyTorch twin run on the same
    chunks (closest-hit and any-hit) and must agree bit for bit; both are
-   timed (median of 20 runs after warm-up, CUDA events).
-4. engine: wave2_closest_hit / wave2_any_hit on coherent and incoherent
-   rays, kernel path against twin path: tri ids equal, no overflow.
-5. slice: a 32^2 render of a 2k-triangle mesh on the card agrees with the
-   same render on the CPU (twin path); then the 512^2 MIS depth-6 render of
-   the 200k-triangle scene (1 warm-up + 4 timed passes) with the kernel's
-   launches counted, and the Cornell box at 512^2 (8 passes).
+   timed (CUDA events) and the gates that pass give the kernel's bound.
+4. wave2 engine: wave2_closest_hit / wave2_any_hit on coherent and
+   incoherent rays, kernel path against twin path: tri ids equal, no overflow.
+5. the wave2 slice: a 32^2 render of a 2k-triangle mesh on the card agrees
+   with the same render on the CPU (twin path); then the 512^2 MIS depth-6
+   render of the 200k-triangle scene (1 warm-up + 4 timed passes) with the
+   kernel's launches counted, and the Cornell box at 512^2 (8 passes).
+6. (with 2) the three new libraries' ptxas output.
+7. block-candidate kernels vs plain versions at the path's shapes
+   (tools/torch_check_traverse.py::check_kernels): phase2_grid on dense
+   (kb=48) and BFS (kb=256) candidates, phase2_stream closest-hit and any-hit
+   (kb=256), on 256 coherent camera blocks and one incoherent 65,536-ray
+   window: bit-equal or FAIL; both timed; the visits give the bound.
+8. block-candidate engines (check_engines): pallas_cluster_closest_hit /
+   any_hit, pallas_sorted_closest_hit / any_hit, _pallas_sorted_closest_hit,
+   kernel path against plain path: equal.  Their agreement with wave2 and
+   their overflow share are printed, not gated.
+9. the sorted-pallas slice: a 32^2 render on the card against the CPU, then
+   512^2, depth 6, MIS under `sorted-pallas` (1 warm-up + 4 timed passes):
+   Mray/s, ray counts, the overflow count (reported, not required to be 0),
+   stream-kernel launches > 0, finite radiance; one profiled pass; the mode
+   is restored to `auto`.
+10. probes (tools/torch_probe_launch.py): add_one against its plain version,
+    chained x + 1 through torch and through add_one in both launch forms,
+    mt_chunks at 64 (live, all-sentinel), 512, 1,024 and 4,096 chunks.
 
 Prints the kernel table as one JSON line before the last line, and last
 {"ok": true, "device": {...}}.  Scene files are written under
@@ -39,63 +59,29 @@ sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 import bench_mesh  # noqa: E402  (numpy-only scene generator)
+import torch_check_traverse as tct  # noqa: E402
+import torch_probe_launch as tpl  # noqa: E402
+from torch_check_traverse import (  # noqa: E402
+    MT_OPS, bound_ms, coherent_rays, cuda_ms, incoherent_rays, vec)
 
 from raytracer_tpu_torch.integrators.path_tracer import RenderParams  # noqa: E402
 from raytracer_tpu_torch.io.scene_loader import load_scene  # noqa: E402
 from raytracer_tpu_torch.math.transform import RigidTransform  # noqa: E402
-from raytracer_tpu_torch.math.vec import Vec3  # noqa: E402
 from raytracer_tpu_torch.ops import cuda_build  # noqa: E402
+from raytracer_tpu_torch.ops import pallas_traverse as pt  # noqa: E402
+from raytracer_tpu_torch.ops import traverse  # noqa: E402
 from raytracer_tpu_torch.ops import wave2_traverse as w2  # noqa: E402
+from raytracer_tpu_torch.ops.launch_probe import add_one  # noqa: E402
 from raytracer_tpu_torch.render.renderer import Viewport, ViewportParams  # noqa: E402
 from raytracer_tpu_torch.scene.camera import make_camera  # noqa: E402
 from raytracer_tpu_torch.scene.presets import cornell_box, cornell_camera_kw  # noqa: E402
 
 bench_mesh.BENCH_DIR = os.path.join(ROOT, "raytracer_tpu_torch", "_build", "bench_scene")
-KERNEL_SOURCE = "raytracer_tpu_torch/csrc/wave2_mt.cu"
-KERNEL_REPLACES = "raytracer_tpu/ops/wave2_traverse.py:324"
+KERNELS = ("wave2_mt", "phase2_grid", "phase2_stream", "add_one")
 
 
 def log(msg: str):
     print(msg, flush=True)
-
-
-def coherent_rays(n, spread=4.0):
-    """Camera-like: common origin, directions in a frustum toward the mesh."""
-    w = int(np.sqrt(n))
-    xs = (np.arange(n) % w) / w - 0.5
-    ys = (np.arange(n) // w) / w - 0.5
-    o = np.tile(np.array([[0.0, 0.0, -3 * spread]], np.float32), (n, 1))
-    d = np.stack([xs * 0.8, ys * 0.8, np.ones(n)], axis=1).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    return o, d
-
-
-def incoherent_rays(n, rng, spread=4.0):
-    """Bounce-like: random origins inside the mesh volume, random dirs."""
-    o = rng.uniform(-spread, spread, (n, 3)).astype(np.float32)
-    d = rng.normal(size=(n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    return o, d
-
-
-def vec(a, dev):
-    t = torch.as_tensor(a, device=dev)
-    return Vec3(t[:, 0].contiguous(), t[:, 1].contiguous(), t[:, 2].contiguous())
-
-
-def cuda_ms(fn, reps=20, warmup=3):
-    """Median milliseconds of ``fn`` over ``reps`` runs (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
 
 
 class twin_engine:
@@ -111,9 +97,70 @@ class twin_engine:
 
 
 def check(cond, msg):
-    if not cond:
-        raise SystemExit(f"FAIL: {msg}")
-    log(f"ok: {msg}")
+    tct.check(cond, msg, log)
+
+
+def timed_render(vp, passes, smi, label):
+    """1 warm-up pass, then ``passes`` timed ones ending with the film on
+    the host.  Returns (seconds, rays, shadow rays, overflow in the timed
+    passes, radiance)."""
+    t0 = time.perf_counter()
+    vp.render(1)
+    torch.cuda.synchronize()
+    log(f"{label} warm-up pass: {time.perf_counter() - t0:.2f} s")
+    before = vp.progress()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    vp.render(passes)
+    radiance = vp.radiance()  # host copy: the timing ends with the film on the host
+    dt = time.perf_counter() - t0
+    after = vp.progress()
+    rays = after["total_rays"] - before["total_rays"]
+    shadow = after["total_shadow_rays"] - before["total_shadow_rays"]
+    overflow = after["total_traversal_overflow"] - before["total_traversal_overflow"]
+    log(f"{label} 512^2 depth 6, {passes} passes: {dt:.3f} s, {(rays + shadow) / dt / 1e6:.4f} Mray/s, "
+        f"rays {rays:.0f}, shadow rays {shadow:.0f}, overflow {overflow:.0f}, "
+        f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+    return dt, rays, shadow, overflow, radiance
+
+
+def profiled_pass(vp, label, top=8):
+    """One pass under torch.profiler: device kernel time in total and by
+    kernel name, beside the pass's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        vp.render(1)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    from torch.autograd import DeviceType
+
+    dev_time = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+    # kernels and copies only: the host-side ops carry their kernels' time a second time
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and dev_time(e) > 0]
+    total = sum(dev_time(e) for e in events)
+    log(f"{label} profiled pass: wall {wall * 1e3:.1f} ms, device kernel time {total / 1e3:.1f} ms, "
+        f"{sum(e.count for e in events)} device events")
+    for e in sorted(events, key=dev_time, reverse=True)[:top]:
+        log(f"  {dev_time(e) / 1e3:9.2f} ms  {e.count:6d} calls  {e.key[:90]}")
+
+
+def small_render_agrees(params, dev, label):
+    """A 32^2 render of the 2k-triangle mesh on the card against the CPU."""
+    small = bench_mesh.ensure_scene(2000)
+    views = []
+    for where in ("cpu", dev):
+        s, m, c = load_scene(small, device=where)
+        views.append(Viewport(s, m, c, ViewportParams(32, 32, seed=0), params, device=where).render(1))
+    a, b = (v.radiance() for v in views)
+    close = float(np.isclose(b, a, atol=1e-4, rtol=1e-3).all(-1).mean())
+    log(f"slice 32^2 mesh2k [{label}] cuda vs cpu: {close:.4f} of pixels within atol 1e-4 rtol 1e-3; "
+        f"means {a.mean():.6f} / {b.mean():.6f}; overflow {views[0].progress()['total_traversal_overflow']:.0f} / "
+        f"{views[1].progress()['total_traversal_overflow']:.0f}")
+    check(close >= 0.98 and abs(a.mean() - b.mean()) <= 0.01 * abs(a.mean()),
+          f"32^2 render on the card agrees with the CPU render ({label})")
 
 
 def main():
@@ -128,50 +175,60 @@ def main():
     log(f"nvidia-smi: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
-    # --- 2. build ------------------------------------------------------------
-    lib_t0 = time.perf_counter()
-    cuda_build.load_kernel_library("wave2_mt")
-    info = cuda_build.BUILD_INFO["wave2_mt"]
-    log(f"build: wave2_mt in {info['seconds']:.2f} s (load {time.perf_counter() - lib_t0:.2f} s)")
-    log(info["log"])
+    # --- 2 + 6. build all four libraries, one nvcc each, together -----------
+    t0 = time.perf_counter()
+    cuda_build.build_kernel_libraries(KERNELS)
+    log(f"build: {len(KERNELS)} libraries in {time.perf_counter() - t0:.2f} s")
+    for kernel in KERNELS:
+        cuda_build.load_kernel_library(kernel)
+        log(f"build [{kernel}] {cuda_build.BUILD_INFO[kernel]['seconds']:.2f} s\n{cuda_build.BUILD_INFO[kernel]['log']}")
+    rows = {"wave2_mt": {"name": "wave2_mt", "route": "cuda", "source": "raytracer_tpu_torch/csrc/wave2_mt.cu",
+                         "replaces": "raytracer_tpu/ops/wave2_traverse.py:324", "launches": 0,
+                         "library_ms": None}}
 
-    # --- 3. kernel vs twin on one real window ------------------------------
+    # --- 3. wave2 kernel vs twin on one real window ------------------------
     t0 = time.perf_counter()
     mscene, mmeta, mcam = load_scene(bench_mesh.ensure_scene(200_000), device=dev)
     cs_set = mscene.clusters
+    k = cs_set.tris_per_cluster
     log(f"scene: mesh200k loaded in {time.perf_counter() - t0:.1f} s; {mscene.tris.count} tris, "
-        f"{cs_set.num_supers} supers x 8 x {cs_set.tris_per_cluster}")
+        f"{cs_set.num_clusters} clusters, {cs_set.num_supers} supers x 8 x {k}")
     rng = np.random.default_rng(7)
     o, d = incoherent_rays(w2.SUBWAVE, rng)
     ro, rd = vec(o, dev), vec(d, dev)
-    kernel_row = None
     for any_hit, tl_value in ((False, w2.BIGF), (True, 4.0)):
         tl = torch.full((w2.SUBWAVE,), tl_value, dtype=torch.float32, device=dev)
         cursor = torch.full_like(tl, -1, dtype=torch.int32)
         cand, _ = w2._p1_extract(cs_set, *ro, *rd, tl, cursor, min(w2.KC, cs_set.num_supers))
         join = w2._pair_join(cs_set, cand, *ro, *rd, tl)
         args = (join.block_cluster, cs_set.super_geom, cs_set.super_sbox, *join.pairs)
+        stats = {}
         got = w2.mt_chunks(*args, any_hit=any_hit)
-        want = w2.mt_chunks_reference(*args, any_hit=any_hit)
+        want = w2.mt_chunks_reference(*args, any_hit=any_hit, stats=stats)
         torch.cuda.synchronize()
         err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
         mism = int((got[1] != want[1]).sum())
         exact = all(torch.equal(g, w) for g, w in zip(got, want))
         label = "any-hit" if any_hit else "closest"
-        log(f"kernel vs twin [{label}]: chunks={join.block_cluster.shape[0]} max_abs_diff={err} "
+        chunks = join.block_cluster.shape[0]
+        log(f"kernel vs twin [{label}]: chunks={chunks} live_chunks={stats['live_chunks']} "
+            f"open (chunk, row, sub) gates={stats['open_gates']} max_abs_diff={err} "
             f"tri_mismatches={mism} hits={int((got[1] >= 0).sum())}")
         check(exact, f"wave2_mt kernel equals its twin bit for bit ({label})")
         ms = cuda_ms(lambda: w2.mt_chunks(*args, any_hit=any_hit))
-        plain_ms = cuda_ms(lambda: w2.mt_chunks_reference(*args, any_hit=any_hit))
-        log(f"time [{label}] at the window shape: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms ({smi})")
+        plain_ms = cuda_ms(lambda: w2.mt_chunks_reference(*args, any_hit=any_hit), reps=5, warmup=1)
+        # each chunk's 1,024 pairs: 7 inputs + 5 outputs; each live chunk's super block read once
+        n_bytes = chunks * w2.CHUNK * (7 + 5) * 4 + stats["live_chunks"] * (8 * k * 16 + 8 * 8) * 4
+        n_ops = stats["open_gates"] * 128 * k * MT_OPS
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        log(f"time [{label}] at the window shape: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
+            f"by {b_by} ({n_bytes} bytes, {n_ops} operations) ({smi})")
         if not any_hit:
-            kernel_row = {"name": "wave2_mt", "route": "cuda", "source": KERNEL_SOURCE,
-                          "replaces": KERNEL_REPLACES, "launches": 0, "max_abs_err": err,
-                          "ms": ms, "plain_ms": plain_ms}
+            rows["wave2_mt"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
         else:
-            kernel_row["max_abs_err"] = max(kernel_row["max_abs_err"], err)
+            rows["wave2_mt"]["max_abs_err"] = max(rows["wave2_mt"]["max_abs_err"], err)
 
-    # --- 4. the engine, kernel path against twin path ----------------------
+    # --- 4. the wave2 engine, kernel path against twin path ----------------
     for label, (o, d) in (("coherent", coherent_rays(w2.SUBWAVE)),
                           ("incoherent", incoherent_rays(w2.SUBWAVE, rng))):
         ro, rd = vec(o, dev), vec(d, dev)
@@ -191,67 +248,82 @@ def main():
         check(torch.equal(k_occ[0], t_occ[0]), f"engine any-hit equal, kernel vs twin ({label})")
         check(not bool(k_hit[4].any()) and not bool(k_occ[1].any()), f"engine overflow all false ({label})")
 
-    # --- 5. the slice --------------------------------------------------------
+    # --- 5. the wave2 slice --------------------------------------------------
     params = RenderParams(max_depth=6, mis=True)
-    small = bench_mesh.ensure_scene(2000)
-    views = []
-    for where in ("cpu", dev):
-        s, m, c = load_scene(small, device=where)
-        views.append(Viewport(s, m, c, ViewportParams(32, 32, seed=0), params, device=where).render(1))
-    a, b = (v.radiance() for v in views)
-    close = float(np.isclose(b, a, atol=1e-4, rtol=1e-3).all(-1).mean())
-    log(f"slice 32^2 mesh2k cuda vs cpu: {close:.4f} of pixels within atol 1e-4 rtol 1e-3; "
-        f"means {a.mean():.6f} / {b.mean():.6f}")
-    check(close >= 0.98 and abs(a.mean() - b.mean()) <= 0.01 * abs(a.mean()),
-          "32^2 render on the card agrees with the CPU render")
-
+    check(traverse.get_traversal_mode() == "auto" and not os.environ.get("RT_TRAVERSAL_MODE"),
+          "the traversal mode is the default (auto -> wave2)")
+    small_render_agrees(params, dev, "wave2")
     vp = Viewport(mscene, mmeta, mcam, ViewportParams(512, 512, seed=0), params, device=dev)
-    t0 = time.perf_counter()
-    vp.render(1)
-    torch.cuda.synchronize()
-    log(f"mesh200k warm-up pass: {time.perf_counter() - t0:.2f} s")
-    before = vp.progress()
     w2.mt_chunks.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    vp.render(4)
-    radiance = vp.radiance()  # host copy: the timing ends with the film on the host
-    dt = time.perf_counter() - t0
-    launches = w2.mt_chunks.launches
-    after = vp.progress()
-    rays = after["total_rays"] - before["total_rays"]
-    shadow = after["total_shadow_rays"] - before["total_shadow_rays"]
-    overflow = after["total_traversal_overflow"]
-    mrays = (rays + shadow) / dt / 1e6
-    log(f"mesh200k_mis 512^2 depth 6, 4 passes: {dt:.3f} s, {mrays:.4f} Mray/s, rays {rays:.0f}, "
-        f"shadow rays {shadow:.0f}, overflow {overflow:.0f}, kernel launches {launches}, "
-        f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
-    check(launches > 0, "the mesh render launched the wave2_mt kernel")
+    _, _, _, overflow, radiance = timed_render(vp, 4, smi, "mesh200k_mis [wave2]")
+    rows["wave2_mt"]["launches"] = w2.mt_chunks.launches  # warm-up + timed passes of this drive
+    log(f"mesh200k_mis [wave2]: wave2_mt launches {w2.mt_chunks.launches}")
+    check(w2.mt_chunks.launches > 0, "the mesh render launched the wave2_mt kernel")
     check(overflow == 0, "traversal overflow is 0")
     check(bool(np.isfinite(radiance).all()) and radiance.mean() > 0, "radiance finite with non-zero mean")
-    kernel_row["launches"] = launches
 
     cscene, cmeta = cornell_box(device=dev)
     t_kw, c_kw = cornell_camera_kw()
     ccam = make_camera(RigidTransform(**t_kw), **c_kw, device=dev)
     cvp = Viewport(cscene, cmeta, ccam, ViewportParams(512, 512, seed=0), params, device=dev)
-    cvp.render(1)
-    torch.cuda.synchronize()
-    before = cvp.progress()
-    t0 = time.perf_counter()
-    cvp.render(8)
-    crad = cvp.radiance()
-    cdt = time.perf_counter() - t0
-    after = cvp.progress()
-    crays = (after["total_rays"] - before["total_rays"]
-             + after["total_shadow_rays"] - before["total_shadow_rays"])
-    log(f"cornell_mis 512^2 depth 6, 8 passes (after 1 warm-up): {cdt:.3f} s, "
-        f"{crays / cdt / 1e6:.4f} Mray/s, rays+shadow {crays:.0f} ({smi})")
+    _, _, _, _, crad = timed_render(cvp, 8, smi, "cornell_mis")
     check(bool(np.isfinite(crad).all()) and crad.mean() > 0, "cornell radiance finite with non-zero mean")
-    check("jax" not in sys.modules, "no jax module was imported")
+
+    # --- 7. block-candidate kernels against their plain versions -----------
+    rows.update(tct.check_kernels(cs_set, dev, log, reps=20, plain_reps=5))
+
+    # --- 8. block-candidate engines, kernel path against plain path --------
+    pt.phase2_grid.launches = pt.phase2_stream.launches = 0
+    tct.check_engines(cs_set, dev, log)
+    rows["phase2_grid"]["launches"] = pt.phase2_grid.launches
+    log(f"engines: phase2_grid launches {pt.phase2_grid.launches}, phase2_stream launches "
+        f"{pt.phase2_stream.launches} (kernel-path calls only; the plain path launches nothing)")
+    check(pt.phase2_grid.launches > 0, "the pallas_cluster_* and _pallas_sorted_closest_hit engines launched "
+                                       "the phase2_grid kernel")
+
+    # --- 9. the sorted-pallas slice ----------------------------------------
+    traverse.set_traversal_mode("sorted-pallas")
+    small_render_agrees(params, dev, "sorted-pallas")
+    vp = Viewport(mscene, mmeta, mcam, ViewportParams(512, 512, seed=0), params, device=dev)
+    pt.phase2_stream.launches = 0
+    w2.mt_chunks.launches = 0
+    _, rays, shadow, overflow, radiance = timed_render(vp, 4, smi, "mesh200k_mis [sorted-pallas]")
+    rows["phase2_stream"]["launches"] = pt.phase2_stream.launches
+    log(f"mesh200k_mis [sorted-pallas]: phase2_stream launches {pt.phase2_stream.launches}, wave2_mt launches "
+        f"{w2.mt_chunks.launches}, overflow share {overflow / max(rays + shadow, 1):.4f} of rays + shadow rays")
+    check(pt.phase2_stream.launches > 0 and w2.mt_chunks.launches == 0,
+          "the sorted-pallas render launched the phase2_stream kernel and not wave2_mt")
+    check(bool(np.isfinite(radiance).all()) and radiance.mean() > 0, "radiance finite with non-zero mean")
+    profiled_pass(vp, "mesh200k_mis [sorted-pallas]")
+    # the same mode through the environment, which overrides set_traversal_mode
+    traverse.set_traversal_mode("auto")
+    os.environ["RT_TRAVERSAL_MODE"] = "sorted-pallas"
+    before = pt.phase2_stream.launches
+    env_vp = Viewport(mscene, mmeta, mcam, ViewportParams(128, 128, seed=0), params, device=dev).render(1)
+    del os.environ["RT_TRAVERSAL_MODE"]
+    check(pt.phase2_stream.launches > before and bool(np.isfinite(env_vp.radiance()).all()),
+          "RT_TRAVERSAL_MODE=sorted-pallas reaches the stream kernel")
+    check(traverse.get_traversal_mode() == "auto", "the traversal mode is back to auto")
+
+    # --- 10. probes -----------------------------------------------------------
+    err = tpl.check_add_one(dev, log)
+    add_one.launches = 0
+    probe = tpl.probe_dispatch(dev, log)
+    b_ms, b_by = bound_ms(2 * tpl.PROBE_SHAPE[0] * tpl.PROBE_SHAPE[1] * 4, tpl.PROBE_SHAPE[0] * tpl.PROBE_SHAPE[1])
+    rows["add_one"] = {"name": "add_one", "route": "cuda", "source": "raytracer_tpu_torch/csrc/add_one.cu",
+                       "replaces": "tools/probe_r4.py:29", "launches": add_one.launches, "max_abs_err": err,
+                       "ms": probe["add_one_grid_graph_us"] / 1e3, "plain_ms": probe["torch_add_graph_us"] / 1e3,
+                       "bound_ms": b_ms, "bound_by": b_by, "library_ms": probe["torch_add_graph_us"] / 1e3}
+    check(add_one.launches > 0, "the dispatch probe launched the add_one kernel")
+    tpl.probe_mt_chunks(cs_set, dev, log)
+
+    for mod in ("jax", "raytracer_tpu"):
+        check(not any(m == mod or m.startswith(mod + ".") for m in sys.modules), f"no {mod} module was imported")
+    for row in rows.values():
+        check(row["launches"] > 0, f"{row['name']}: launched {row['launches']} times on its driven path")
 
     print(f"{smi}", flush=True)
-    print(json.dumps({"kernels": [kernel_row]}), flush=True)
+    print(json.dumps({"kernels": [rows[kernel] for kernel in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
 

@@ -4,20 +4,25 @@ The JAX package beside it is the reference: every module here mirrors the
 module at the same path under ``raytracer_tpu/`` and keeps its public names
 and signatures, so a test can feed both the same numpy inputs.
 
-This first slice is the MIS path tracer on analytic scenes and on triangle
-meshes through the wave2 sort-join engine:
+So far: the MIS path tracer on analytic scenes and on triangle meshes, the
+mesh through a selectable traversal backend (the wave2 sort-join engine by
+default; the block-candidate ``sorted-pallas`` path; the per-ray ``cluster``
+path):
 
     render/      Viewport, render_passes, film accumulation
     integrators/ path_tracer (naive + MIS, fused shadow query)
     scene/       SoA scene NamedTuples, camera, builder, clusters, BVH perm
-    ops/         intersect, traverse, wave2 engine (+ CUDA MT kernel), BSDF,
-                 lights, materials
+    ops/         intersect, traverse (mode dispatch), wave2 engine,
+                 block-candidate and per-ray cluster traversal, BSDF, lights,
+                 materials, the launch probe, the CUDA kernel build
     math/        SoA vector math, sampling, microfacet, fresnel, transforms
     sampler/     counter-based deterministic sample streams (+ Halton)
-    io/          reference-format JSON scene loading
+    io/          reference-format JSON scene loading, OBJ meshes
+    native/      the C++ BVH builder (built with g++ at first use)
     csrc/        hand-written CUDA C++ kernels (built with nvcc at first use)
 
-The package imports torch, numpy and the stdlib, and never jax.  Every
+The package imports torch, numpy and the stdlib, never jax and nothing of
+``raytracer_tpu``.  Every
 tensor lives on the device the caller names: ``Viewport(..., device=)``,
 ``SceneBuilder.build(device)``; nothing picks a device by default.
 """

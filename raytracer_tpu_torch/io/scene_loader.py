@@ -3,7 +3,7 @@
 
 This slice loads what the bench-mesh and Cornell-style scenes use:
 materials, analytic objects (sphere, box, rect/plane), baked OBJ meshes
-(through the jax-free ``raytracer_tpu.io.obj``), area / sphere / point /
+(through the port's ``io/obj.py``), area / sphere / point /
 spot / directional / background lights, and the camera.  Textures, and a
 mesh placed more than once (instancing), raise: they wait for ROADMAP
 queue 1, items 13 and 16.  Box/rect ``size`` are HALF-extents.
@@ -17,7 +17,7 @@ from collections import Counter
 
 import numpy as np
 
-from raytracer_tpu.io.obj import load_obj
+from .obj import load_obj
 
 from ..math.transform import RigidTransform, parse_transform
 from ..scene import types as T

@@ -2,9 +2,11 @@
 
 Each source is compiled with ``nvcc`` into a shared library with a plain C
 interface, under ``raytracer_tpu_torch/_build/`` (git-ignored), and loaded
-with ctypes.  The library name carries a hash of the source and flags, so
-an edited kernel is rebuilt and a built one is reused.  Nothing here runs
-at import time: the CPU tests import every module on a host with no nvcc.
+with ctypes.  The library name carries a hash of the source, of the shared
+headers (``csrc/*.cuh``) and of the flags, so an edited kernel is rebuilt and
+a built one is reused.  ``build_kernel_libraries`` starts one ``nvcc`` per
+source, all together.  Nothing here runs at import time: the CPU tests
+import every module on a host with no nvcc.
 """
 
 from __future__ import annotations
@@ -41,27 +43,53 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels are built with it")
 
 
-def load_kernel_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu`` as a ctypes library."""
+def _paths(name: str):
+    """(source, output library) of kernel ``name``."""
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR) if f.endswith(".cuh")):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
+
+
+def build_kernel_libraries(names) -> None:
+    """Build every not-yet-built ``csrc/<name>.cu`` of ``names``, one nvcc
+    process each, all started together; raises if one fails."""
     with _LOCK:
-        if name in _LIBS:
-            return _LIBS[name]
-        src = os.path.join(CSRC_DIR, f"{name}.cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-        out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
-        info = {"seconds": 0.0, "log": "reused " + out}
-        if not os.path.exists(out):
+        jobs = []
+        for name in names:
+            src, out = _paths(name)
+            if name in _LIBS or os.path.exists(out):
+                BUILD_INFO.setdefault(name, {"seconds": 0.0, "log": "reused " + out})
+                continue
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{out}.{os.getpid()}.tmp"
-            t0 = time.perf_counter()
-            res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                                 capture_output=True, text=True, timeout=600)
-            if res.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {src}:\n{res.stderr[-4000:]}")
+            proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            jobs.append((name, src, out, tmp, proc, time.perf_counter()))
+        failed = []
+        for name, src, out, tmp, proc, t0 in jobs:
+            try:
+                stdout, stderr = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                stdout, stderr = proc.communicate()
+                stderr += "\nnvcc timed out"
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {src}:\n{stderr[-4000:]}")
+                continue
             os.replace(tmp, out)
-            info = {"seconds": time.perf_counter() - t0, "log": (res.stdout + res.stderr).strip()}
-        lib = ctypes.CDLL(out)
-        BUILD_INFO[name] = info
-        _LIBS[name] = lib
-        return lib
+            BUILD_INFO[name] = {"seconds": time.perf_counter() - t0, "log": (stdout + stderr).strip()}
+        if failed:
+            raise RuntimeError("\n".join(failed))
+
+
+def load_kernel_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu`` as a ctypes library."""
+    if name not in _LIBS:
+        build_kernel_libraries([name])
+    with _LOCK:
+        if name not in _LIBS:
+            _LIBS[name] = ctypes.CDLL(_paths(name)[1])
+        return _LIBS[name]

@@ -1,0 +1,48 @@
+"""``o = x + 1`` as a hand-written kernel: the dispatch probe (port of the
+``triv`` / ``triv_grid`` Pallas probes of ``tools/probe_r4.py``).
+
+The kernel exists to measure what launching a kernel of the port's own costs
+on the card, as one thread block over the whole array and as one thread block
+per 1,024 elements; ``tools/torch_probe_launch.py`` times it beside the same
+sum through PyTorch.  Nothing on a render path calls it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+
+def add_one_reference(x):
+    """Plain PyTorch version of ``csrc/add_one.cu``."""
+    return x + 1.0
+
+
+def add_one(x, grid: bool = False):
+    """``x + 1`` for a contiguous float32 tensor.  CPU tensors take the plain
+    version; CUDA tensors launch ``csrc/add_one.cu`` (counted in
+    ``add_one.launches``) as one thread block (``grid=False``) or as one
+    thread block per 1,024 elements (``grid=True``), or raise."""
+    if x.device.type == "cpu":
+        return add_one_reference(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"add_one: unsupported device {x.device}")
+    if x.dtype != torch.float32 or not x.is_contiguous() or x.numel() >= 2 ** 31:
+        raise ValueError("add_one: input does not match the kernel's dtype, size or layout")
+    from .cuda_build import load_kernel_library
+
+    fn = load_kernel_library("add_one").add_one_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    out = torch.empty_like(x)
+    rc = fn(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()), x.numel(), int(grid),
+            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"add_one kernel launch failed: cudaError {rc}")
+    add_one.launches += 1
+    return out
+
+
+add_one.launches = 0

@@ -36,6 +36,7 @@ import torch
 
 from ..math.vec import Vec3
 from ..scene.clusters import SUB_PER_SUPER, ClusterSet
+from .cluster_traverse import slab_inv as _inv
 from .intersect import BIG
 
 TRI_EPS = 1e-7
@@ -53,12 +54,6 @@ _P1_CHUNK_ELEMS = 1 << 26  # bound on one (rays x Cs) slab-test block
 def _key_shift(cs: int) -> int:
     """Shift of the super id in the pair key; keeps the key inside int32."""
     return max(0, min(21, 31 - max(1, int(cs + 1).bit_length())))
-
-
-def _inv(d):
-    """Slab-test inverse with the reference's 1e-12 floor."""
-    tiny = 1e-12
-    return 1.0 / torch.where(torch.abs(d) > tiny, d, torch.where(d >= 0, tiny, -tiny))
 
 
 def _stable_sort(key, *payloads):
@@ -198,10 +193,12 @@ def _pair_join(cs_set: ClusterSet, cand, ox, oy, oz, dx, dy, dz, tl) -> PairJoin
 
 
 def mt_chunks_reference(block_cluster, super_geom, super_sbox, ox, oy, oz, dx, dy, dz, tl,
-                        any_hit: bool):
+                        any_hit: bool, stats: dict = None):
     """Plain PyTorch twin of ``csrc/wave2_mt.cu`` (and of the TPU
     ``_mt_kernel``): vectorized over (chunk, 8 triangle slots, row, lane).
-    Returns (t, tri, u, v, done), each (B2, ROWS, 128)."""
+    Returns (t, tri, u, v, done), each (B2, ROWS, 128).  ``stats`` receives
+    'open_gates', the (chunk, row, sub) gates that pass on these inputs, and
+    'live_chunks', the chunks that name a real super."""
     cs = super_geom.shape[0]
     k = super_geom.shape[1] // SUB_PER_SUPER
     live = (block_cluster < cs)[:, None, None]
@@ -225,6 +222,9 @@ def mt_chunks_reference(block_cluster, super_geom, super_sbox, ox, oy, oz, dx, d
                          torch.maximum(t1z, t2z))
     sub_hit = (bmax >= torch.clamp_min(bmin, 0.0)) & (bmin < e(tla)) & e(mask)
     row_open = sub_hit.any(-1)  # (B2, R, 8)
+    if stats is not None:
+        stats["open_gates"] = int((row_open & live).sum())
+        stats["live_chunks"] = int(live.sum())
 
     # running best per (triangle slot x pair): dim 1 is the slot
     r = lambda a: a[:, None]

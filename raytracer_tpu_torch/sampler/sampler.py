@@ -89,13 +89,11 @@ _blue_noise_cache: Optional[np.ndarray] = None
 
 
 def blue_noise_table() -> np.ndarray:
-    """(128, 128, 4) float32 dither table, read from the JAX package's
-    ``sampler/bluenoise128.npy`` (one table serves both packages)."""
+    """(128, 128, 4) float32 dither table, read from ``bluenoise128.npy``
+    beside this module (the port's copy of the reference's table)."""
     global _blue_noise_cache
     if _blue_noise_cache is None:
-        import raytracer_tpu  # jax-free package root: only its file path is used
-
-        path = os.path.join(os.path.dirname(raytracer_tpu.__file__), "sampler", "bluenoise128.npy")
+        path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "bluenoise128.npy")
         _blue_noise_cache = (np.load(path).astype(np.float32) + 0.5) / 65536.0
     return _blue_noise_cache
 

@@ -2,11 +2,11 @@
 ``raytracer_tpu/scene/bvh.py``, host build only).
 
 Triangle ids everywhere index the triangles in BVH leaf order, so the port
-must reproduce the reference's ``perm``.  It therefore calls the very same
-native sweep-SAH builder (``raytracer_tpu.native``, jax-free) the JAX
-package calls, and raises when that library is unavailable instead of
-taking a slower path that could order ties differently.  The packed
-traversal tables (``BVHFlat``) wait for the ``bvh`` traversal backend.
+must reproduce the reference's ``perm``.  It therefore runs its own copy of
+the native sweep-SAH builder (``raytracer_tpu_torch/native``), built with
+g++ at first use, and raises when that build fails instead of taking a
+slower path that could order ties differently.  The packed traversal
+tables (``BVHFlat``) wait for the ``bvh`` traversal backend.
 """
 
 from __future__ import annotations
@@ -20,15 +20,9 @@ LEAF_SIZE = 4  # triangles per (padded) leaf
 
 def build_perm(box_min: np.ndarray, box_max: np.ndarray) -> np.ndarray:
     """(T,) int64 leaf-order permutation of the items with these AABBs."""
-    from raytracer_tpu.native import load_library
+    from ..native import load_library
 
-    lib = load_library("bvh_builder")
-    if lib is None:
-        raise RuntimeError(
-            "the native BVH builder (raytracer_tpu/native/bvh_builder.cpp) could "
-            "not be loaded or compiled with g++; the port needs it to reproduce "
-            "the reference triangle order"
-        )
+    lib = load_library("bvh_builder")  # raises when g++ cannot build it
     n = box_min.shape[0]
     f32p = ctypes.POINTER(ctypes.c_float)
     i32p = ctypes.POINTER(ctypes.c_int32)

@@ -1,13 +1,18 @@
-"""Super-cluster acceleration structure for the wave2 engine (port of
+"""Cluster acceleration structure of the mesh traversal engines (port of
 ``raytracer_tpu/scene/clusters.py``).
 
 Triangles are sorted by the Morton code of their centroid and cut into
-clusters of K consecutive triangles; 8 Morton-consecutive clusters form a
-super-cluster.  Phase 1 of the wave2 engine slab-tests rays against the
-super boxes; the MT kernel then streams one super's component-major
-geometry and gates its 8 sub-cluster boxes.  The packing is host numpy
-and bit-identical to the reference; ``stream_block`` and ``tree_levels``
-serve only the ``pallas_traverse`` kernels and wait with them (ROADMAP).
+clusters of K consecutive triangles.  Three engines read the set:
+
+- ``cluster`` (``ops/cluster_traverse.py``) and the block-candidate kernels
+  (``ops/pallas_traverse.py``) slab-test rays against the cluster boxes
+  (``box_min_*`` / ``box_max_*``) or walk the complete 8-ary box tree over
+  them (``tree_levels``), then run Möller-Trumbore over one cluster's
+  ``tri_block`` / ``tri_id`` rows, or over its packed ``stream_block`` tile;
+- wave2 groups 8 Morton-consecutive clusters into a super-cluster
+  (``super_box``, component-major ``super_geom``, sub boxes ``super_sbox``).
+
+The packing is host numpy and bit-identical to the reference.
 """
 
 from __future__ import annotations
@@ -21,9 +26,25 @@ SUB_PER_SUPER = 8
 
 
 class ClusterSet(NamedTuple):
-    """Device tensors of Cs super-clusters of 8 x K triangle slots."""
+    """Device tensors: C clusters of K padded triangle slots, in Cs
+    super-clusters of 8."""
 
+    box_min_x: torch.Tensor  # (C,) f32 cluster AABBs
+    box_min_y: torch.Tensor
+    box_min_z: torch.Tensor
+    box_max_x: torch.Tensor
+    box_max_y: torch.Tensor
+    box_max_z: torch.Tensor
+    tri_block: torch.Tensor  # (C, K*9) f32: K x (v0, e1, e2); degenerate pads
     tri_id: torch.Tensor  # (C, K) int32 leaf-order triangle ids, -1 = pad
+    # complete 8-ary tree over the Morton-ordered clusters: level i holds
+    # 8^(i+1) nodes, node j's children are nodes [8j, 8j+8) of level i+1, the
+    # last level's node j covers cluster j.  Tuple of (Ni, 6) f32
+    # [min.xyz, max.xyz]; empty (padding) nodes have min > max
+    tree_levels: tuple
+    # (C, T*8, 128) f32, one cluster per tile; flat layout [0:9K) geometry,
+    # [9K:10K) ids as f32 values (-1 = pad), [10K:10K+6) the cluster box
+    stream_block: torch.Tensor
     super_box: torch.Tensor  # (Cs, 6) f32 [min.xyz, max.xyz]; empty: min > max
     # (Cs, 8K, 16) f32 component-major geometry, rows [s*K, (s+1)*K) = sub s,
     # lanes [v0.xyz, e1.xyz, e2.xyz, tri_id, pad]
@@ -36,6 +57,10 @@ class ClusterSet(NamedTuple):
     @property
     def num_supers(self) -> int:
         return self.super_box.shape[0]
+
+    @property
+    def num_clusters(self) -> int:
+        return self.tri_id.shape[0]
 
     @property
     def tris_per_cluster(self) -> int:
@@ -95,8 +120,14 @@ def build_clusters(
     )
     tri_attr = _pack_tri_attr(t, normals, uvs, material_ids)
     dev = lambda a: torch.as_tensor(a).to(device)
+    vmin, vmax = vmin.astype(np.float32), vmax.astype(np.float32)
     return ClusterSet(
+        box_min_x=dev(vmin[:, 0]), box_min_y=dev(vmin[:, 1]), box_min_z=dev(vmin[:, 2]),
+        box_max_x=dev(vmax[:, 0]), box_max_y=dev(vmax[:, 1]), box_max_z=dev(vmax[:, 2]),
+        tri_block=dev(blocks.reshape(c, k * 9)),
         tri_id=dev(ids.reshape(c, k)),
+        tree_levels=tuple(dev(level) for level in _build_cluster_tree(vmin, vmax)),
+        stream_block=dev(_pack_stream_blocks(blocks.reshape(c, k * 9), ids.reshape(c, k), vmin, vmax)),
         super_box=dev(super_box),
         super_geom=dev(super_geom),
         super_sbox=dev(super_sbox),
@@ -142,3 +173,40 @@ def _pack_super_clusters(tri_block: np.ndarray, tri_id: np.ndarray, vmin: np.nda
     sbox = np.zeros((cs, SUB_PER_SUPER, 8), np.float32)
     sbox[:, :, :6] = sb
     return super_box, geom, sbox
+
+
+def _pack_stream_blocks(tri_block: np.ndarray, tri_id: np.ndarray, vmin: np.ndarray, vmax: np.ndarray):
+    """Pack (geometry, ids, cluster box) of each cluster into whole tiles of
+    (8, 128) floats: [0:9K) geometry, [9K:10K) ids as f32 values (exact to
+    2^24; -1 = pad), [10K:10K+6) cluster AABB min.xyz / max.xyz."""
+    c, k9 = tri_block.shape
+    k = tri_id.shape[1]
+    flat_len = k9 + k + 6
+    tiles = (flat_len + 1023) // 1024
+    out = np.zeros((c, tiles * 1024), np.float32)
+    out[:, :k9] = tri_block
+    out[:, k9: k9 + k] = tri_id.astype(np.float32)
+    out[:, k9 + k: k9 + k + 3] = vmin
+    out[:, k9 + k + 3: k9 + k + 6] = vmax
+    return out.reshape(c, tiles * 8, 128)
+
+
+def _build_cluster_tree(vmin: np.ndarray, vmax: np.ndarray) -> tuple:
+    """Complete 8-ary box tree over the Morton-ordered cluster boxes: 8
+    consecutive nodes per parent; the last level is the clusters padded to a
+    power of 8 with empty boxes (min > max, no ray hits them)."""
+    c = vmin.shape[0]
+    depth = 1
+    while 8 ** depth < c:
+        depth += 1
+    cap = 8 ** depth
+    lo = np.full((cap, 3), np.float32(3e38))
+    hi = np.full((cap, 3), np.float32(-3e38))
+    lo[:c] = vmin
+    hi[:c] = vmax
+    levels = [np.concatenate([lo, hi], axis=1).astype(np.float32)]
+    while levels[0].shape[0] > 8:
+        grp = levels[0].reshape(levels[0].shape[0] // 8, 8, 6)
+        parent = np.concatenate([grp[:, :, 0:3].min(axis=1), grp[:, :, 3:6].max(axis=1)], axis=1)
+        levels.insert(0, parent.astype(np.float32))
+    return tuple(levels)

@@ -38,8 +38,11 @@ def _field_names(cls) -> tuple:
 
 def scene_from_numpy(obj, device):
     """Port-side copy of a reference object whose arrays are numpy."""
-    if obj is None or isinstance(obj, (bool, int, float, str, tuple)) and not hasattr(obj, "_fields"):
+    if obj is None or isinstance(obj, (bool, int, float, str)):
         return obj
+    if isinstance(obj, tuple) and not hasattr(obj, "_fields"):
+        # plain tuples: static metadata, or arrays (ClusterSet.tree_levels)
+        return tuple(scene_from_numpy(x, device) for x in obj)
     if isinstance(obj, (np.ndarray, np.generic)):
         return torch.as_tensor(np.array(obj)).to(device)
     cls = _PORT_TYPES.get(type(obj).__name__)

@@ -29,6 +29,7 @@ from raytracer_tpu.scene.presets import cornell_box as ref_cornell_box
 from raytracer_tpu_torch.integrators.path_tracer import RenderParams
 from raytracer_tpu_torch.io.scene_loader import load_scene
 from raytracer_tpu_torch.math.transform import RigidTransform
+from raytracer_tpu_torch.math.vec import Vec3 as Vec3t
 from raytracer_tpu_torch.render.renderer import Viewport, ViewportParams
 from raytracer_tpu_torch.scene.camera import make_camera
 from raytracer_tpu_torch.scene.presets import cornell_box, cornell_camera_kw
@@ -99,3 +100,119 @@ def test_viewport_needs_scene_on_its_device():
     _, got = _cornell()
     with pytest.raises(ValueError, match="must live on"):
         Viewport(*got, device="meta")
+
+
+# --- the traversal mode dispatch and the renders under the other modes ------
+
+from unittest import mock  # noqa: E402
+
+import jax  # noqa: E402
+import torch  # noqa: E402
+
+from raytracer_tpu.ops import pallas_traverse as ref_pallas_traverse  # noqa: E402
+from raytracer_tpu.ops import traverse as ref_traverse  # noqa: E402
+from raytracer_tpu_torch.ops import traverse  # noqa: E402
+
+
+@pytest.fixture
+def restore_modes(monkeypatch):
+    """Both packages back to 'auto' afterwards; the JAX package reads its
+    mode while it traces, so its compiled renders are dropped too."""
+    monkeypatch.delenv("RT_TRAVERSAL_MODE", raising=False)
+    yield
+    traverse.set_traversal_mode("auto")
+    ref_traverse.set_traversal_mode("auto")
+    jax.clear_caches()
+
+
+def test_traversal_mode_selection(restore_modes, monkeypatch):
+    assert traverse.get_traversal_mode() == "auto" and traverse._resolved_mode() == "wave2"
+    with pytest.raises(ValueError, match="not in"):
+        traverse.set_traversal_mode("sorted_pallas")  # a typo raises
+    assert traverse.get_traversal_mode() == "auto"
+    for mode in ("wave2", "sorted-pallas", "cluster", "null"):
+        traverse.set_traversal_mode(mode)
+        assert traverse.get_traversal_mode() == mode and traverse._resolved_mode() == mode
+    assert traverse._VALID_MODES == ref_traverse._VALID_MODES
+    # the environment overrides, through the same validation
+    monkeypatch.setenv("RT_TRAVERSAL_MODE", "cluster")
+    traverse.set_traversal_mode("wave2")
+    assert traverse._resolved_mode() == "cluster"
+    monkeypatch.setenv("RT_TRAVERSAL_MODE", "clutser")
+    with pytest.raises(ValueError, match="RT_TRAVERSAL_MODE"):
+        traverse._resolved_mode()
+
+
+@pytest.mark.parametrize("mode", ["wave", "bvh"])
+@pytest.mark.parametrize("how", ["set", "env"])
+def test_unported_modes_raise_and_never_become_another(restore_modes, monkeypatch, tmp_path, mode, how):
+    _, got = _bench_mesh(tmp_path, monkeypatch)
+    if how == "set":
+        traverse.set_traversal_mode(mode)  # a valid name of the reference
+    else:
+        monkeypatch.setenv("RT_TRAVERSAL_MODE", mode)
+    pv = Viewport(*got, ViewportParams(8, 8, seed=0), RenderParams(max_depth=2, mis=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pv.render(1)
+
+
+def test_each_mode_reaches_its_own_engine(restore_modes, tmp_path, monkeypatch):
+    """No mode silently becomes another: each one's mesh queries go to its
+    own engine and to no other."""
+    _, got = _bench_mesh(tmp_path, monkeypatch)
+    engines = {"wave2": "wave2_closest_hit", "sorted-pallas": "pallas_sorted_closest_hit",
+               "cluster": "cluster_closest_hit"}
+    for mode in ("auto", "wave2", "sorted-pallas", "cluster", "null"):
+        calls = {name: 0 for name in engines.values()}
+        with mock.patch.multiple(traverse, **{
+            name: (lambda real, name: lambda *a, **k: (calls.__setitem__(name, calls[name] + 1), real(*a, **k))[1])(
+                getattr(traverse, name), name) for name in engines.values()}):
+            traverse.set_traversal_mode(mode)
+            pv = Viewport(*got, ViewportParams(8, 8, seed=0), RenderParams(max_depth=2, mis=True), device="cpu")
+            rad = pv.render(1).radiance()
+        want = engines.get("wave2" if mode == "auto" else mode)
+        assert [n for n, c in calls.items() if c] == ([want] if want else []), (mode, calls)
+        assert np.isfinite(rad).all()
+
+
+def test_null_mode_skips_the_mesh(restore_modes, tmp_path, monkeypatch):
+    _, got = _bench_mesh(tmp_path, monkeypatch)
+    scene = got[0]
+    traverse.set_traversal_mode("null")
+    pv = Viewport(*got, ViewportParams(8, 8, seed=0), RenderParams(max_depth=2, mis=True), device="cpu")
+    pv.render(1)
+    assert pv.progress()["total_traversal_overflow"] == 0
+    n = 64
+    o = Vec3t(torch.zeros(n), torch.full((n,), 5.0), torch.zeros(n))
+    d = Vec3t(torch.zeros(n), torch.full((n,), -1.0), torch.zeros(n))
+    hits = traverse.scene_traverse(scene, o, d)
+    assert (hits.tri_id < 0).all() and hits.attr is None
+    traverse.set_traversal_mode("wave2")
+    assert (traverse.scene_traverse(scene, o, d).tri_id >= 0).all()  # straight down onto the heightfield
+
+
+@pytest.mark.parametrize("mode", ["sorted-pallas", "cluster"])
+def test_viewport_matches_reference_under_mode(restore_modes, tmp_path, monkeypatch, mode):
+    """32^2, depth 6, MIS render of the 2k-triangle mesh scene with both
+    packages in the same traversal mode (the JAX package's stream kernel in
+    Pallas interpret mode).  Same tolerances as the default-mode render;
+    the overflow counters of the two packages must be equal, not zero."""
+    ref, got = _bench_mesh(tmp_path, monkeypatch)
+    jax.clear_caches()
+    ref_traverse.set_traversal_mode(mode)
+    traverse.set_traversal_mode(mode)
+    real = ref_pallas_traverse.pl.pallas_call
+    with mock.patch.object(ref_pallas_traverse.pl, "pallas_call",
+                           lambda kernel, **kw: real(kernel, interpret=True, **kw)):
+        rv = RefViewport(*ref, RefViewportParams(SIZE, SIZE, seed=0), RefRenderParams(max_depth=6, mis=True))
+        a = rv.render(1).radiance()
+    pv = Viewport(*got, ViewportParams(SIZE, SIZE, seed=0), RenderParams(max_depth=6, mis=True), device="cpu")
+    b = pv.render(1).radiance()
+    assert np.isfinite(b).all() and b.mean() > 0
+    rp, pp = rv.progress(), pv.progress()
+    for key in ("total_rays", "total_shadow_rays"):
+        assert abs(pp[key] - rp[key]) <= 1e-3 * rp[key], (key, pp[key], rp[key])
+    assert pp["total_traversal_overflow"] == rp["total_traversal_overflow"]
+    close = np.isclose(b, a, atol=1e-4, rtol=1e-3).all(-1)
+    assert close.mean() >= 0.995, close.mean()
+    assert abs(b.mean() - a.mean()) <= 1e-3 * abs(a.mean())

@@ -28,7 +28,8 @@ from raytracer_tpu_torch.scene.convert import scene_from_numpy
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
 import bench_mesh  # noqa: E402
 
-CLUSTER_FIELDS = ("tri_id", "super_box", "super_geom", "super_sbox", "tri_attr")
+CLUSTER_FIELDS = ("box_min_x", "box_min_y", "box_min_z", "box_max_x", "box_max_y", "box_max_z",
+                  "tri_block", "tri_id", "stream_block", "super_box", "super_geom", "super_sbox", "tri_attr")
 
 
 def to_port(obj):
@@ -75,6 +76,10 @@ def test_build_clusters_bit_equal(n_tris):
         got = build_clusters(v0, e1, e2, k=k, normals=nrm, uvs=uv, material_ids=mid, device="cpu")
         for f in CLUSTER_FIELDS:
             assert np.array_equal(getattr(got, f).numpy(), np.asarray(getattr(ref, f))), (k, f)
+            assert getattr(got, f).dtype == torch.as_tensor(np.array(getattr(ref, f))).dtype, (k, f)
+        assert len(got.tree_levels) == len(ref.tree_levels)
+        for lvl, (a, b) in enumerate(zip(got.tree_levels, ref.tree_levels)):
+            assert np.array_equal(a.numpy(), np.asarray(b)), (k, "tree_levels", lvl)
         assert got.num_supers == ref.num_supers and got.tris_per_cluster == ref.tris_per_cluster
 
 
