@@ -8,17 +8,22 @@ Phases (any failure exits non-zero before the last line):
 2. build: compiles csrc/wave2_mt.cu, phase2_grid.cu, phase2_stream.cu and
    add_one.cu with nvcc, all at once, into raytracer_tpu_torch/_build/, and
    prints what ptxas says of each.
-3. wave2 kernel vs twin: on the 200k-triangle bench mesh, one real traversal
-   window (65,536 incoherent rays, kc=16) is joined into pair chunks; the
-   CUDA Möller-Trumbore kernel and its plain PyTorch twin run on the same
-   chunks (closest-hit and any-hit) and must agree bit for bit; both are
-   timed (CUDA events) and the gates that pass give the kernel's bound.
+3. wave2 kernel vs twin (tools/torch_check_traverse.py::check_wave2_kernel):
+   on the 200k-triangle bench mesh, one real traversal window (65,536
+   incoherent rays, kc=16) is joined into pair chunks; the CUDA
+   Möller-Trumbore kernel and its plain PyTorch twin run on the same chunks
+   (closest-hit and any-hit) and must agree bit for bit; both are timed (CUDA
+   events) and the gates that pass give the kernel's bound.  Then, bit-equal
+   or FAIL: the hand-built tie cases (equal t under different tri ids within
+   a slot, across slots and across subs; closest, any-hit and filler lanes
+   mixed) and windows against K = 8 and K = 128 cluster sets.
 4. wave2 engine: wave2_closest_hit / wave2_any_hit on coherent and
    incoherent rays, kernel path against twin path: tri ids equal, no overflow.
 5. the wave2 slice: a 32^2 render of a 2k-triangle mesh on the card agrees
    with the same render on the CPU (twin path); then the 512^2 MIS depth-6
    render of the 200k-triangle scene (1 warm-up + 4 timed passes) with the
-   kernel's launches counted, and the Cornell box at 512^2 (8 passes).
+   kernel's launches counted, one profiled pass, and the Cornell box at
+   512^2 (8 passes).
 6. (with 2) the three new libraries' ptxas output.
 7. block-candidate kernels vs plain versions at the path's shapes
    (tools/torch_check_traverse.py::check_kernels): phase2_grid on dense
@@ -34,8 +39,9 @@ Phases (any failure exits non-zero before the last line):
    Mray/s, ray counts, the overflow count (reported, not required to be 0),
    stream-kernel launches > 0, finite radiance; one profiled pass; the mode
    is restored to `auto`.
-10. probes (tools/torch_probe_launch.py): add_one against its plain version,
-    chained x + 1 through torch and through add_one in both launch forms,
+10. probes (tools/torch_probe_launch.py): add_one against its plain version
+    (the probe's shape, odd sizes, an unaligned view), chained x + 1 through
+    torch, through add_one in both launch forms and beside an empty kernel,
     mt_chunks at 64 (live, all-sentinel), 512, 1,024 and 4,096 chunks.
 
 Prints the kernel table as one JSON line before the last line, and last
@@ -61,8 +67,7 @@ sys.path.insert(0, os.path.join(ROOT, "tools"))
 import bench_mesh  # noqa: E402  (numpy-only scene generator)
 import torch_check_traverse as tct  # noqa: E402
 import torch_probe_launch as tpl  # noqa: E402
-from torch_check_traverse import (  # noqa: E402
-    MT_OPS, bound_ms, coherent_rays, cuda_ms, incoherent_rays, vec)
+from torch_check_traverse import bound_ms, coherent_rays, incoherent_rays, vec  # noqa: E402
 
 from raytracer_tpu_torch.integrators.path_tracer import RenderParams  # noqa: E402
 from raytracer_tpu_torch.io.scene_loader import load_scene  # noqa: E402
@@ -124,9 +129,10 @@ def timed_render(vp, passes, smi, label):
     return dt, rays, shadow, overflow, radiance
 
 
-def profiled_pass(vp, label, top=8):
+def profiled_pass(vp, label, top=8, named=()):
     """One pass under torch.profiler: device kernel time in total and by
-    kernel name, beside the pass's wall time."""
+    kernel name (the ``top`` largest, and those whose name holds one of
+    ``named``), beside the pass's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -143,7 +149,8 @@ def profiled_pass(vp, label, top=8):
     total = sum(dev_time(e) for e in events)
     log(f"{label} profiled pass: wall {wall * 1e3:.1f} ms, device kernel time {total / 1e3:.1f} ms, "
         f"{sum(e.count for e in events)} device events")
-    for e in sorted(events, key=dev_time, reverse=True)[:top]:
+    ranked = sorted(events, key=dev_time, reverse=True)
+    for e in ranked[:top] + [e for e in ranked[top:] if any(n in e.key for n in named)]:
         log(f"  {dev_time(e) / 1e3:9.2f} ms  {e.count:6d} calls  {e.key[:90]}")
 
 
@@ -182,51 +189,15 @@ def main():
     for kernel in KERNELS:
         cuda_build.load_kernel_library(kernel)
         log(f"build [{kernel}] {cuda_build.BUILD_INFO[kernel]['seconds']:.2f} s\n{cuda_build.BUILD_INFO[kernel]['log']}")
-    rows = {"wave2_mt": {"name": "wave2_mt", "route": "cuda", "source": "raytracer_tpu_torch/csrc/wave2_mt.cu",
-                         "replaces": "raytracer_tpu/ops/wave2_traverse.py:324", "launches": 0,
-                         "library_ms": None}}
 
-    # --- 3. wave2 kernel vs twin on one real window ------------------------
+    # --- 3. wave2 kernel vs twin: one real window, the tie cases, K = 8 and 128 ---
     t0 = time.perf_counter()
     mscene, mmeta, mcam = load_scene(bench_mesh.ensure_scene(200_000), device=dev)
     cs_set = mscene.clusters
-    k = cs_set.tris_per_cluster
     log(f"scene: mesh200k loaded in {time.perf_counter() - t0:.1f} s; {mscene.tris.count} tris, "
-        f"{cs_set.num_clusters} clusters, {cs_set.num_supers} supers x 8 x {k}")
+        f"{cs_set.num_clusters} clusters, {cs_set.num_supers} supers x 8 x {cs_set.tris_per_cluster}")
+    rows = {"wave2_mt": tct.check_wave2_kernel(cs_set, dev, log)}
     rng = np.random.default_rng(7)
-    o, d = incoherent_rays(w2.SUBWAVE, rng)
-    ro, rd = vec(o, dev), vec(d, dev)
-    for any_hit, tl_value in ((False, w2.BIGF), (True, 4.0)):
-        tl = torch.full((w2.SUBWAVE,), tl_value, dtype=torch.float32, device=dev)
-        cursor = torch.full_like(tl, -1, dtype=torch.int32)
-        cand, _ = w2._p1_extract(cs_set, *ro, *rd, tl, cursor, min(w2.KC, cs_set.num_supers))
-        join = w2._pair_join(cs_set, cand, *ro, *rd, tl)
-        args = (join.block_cluster, cs_set.super_geom, cs_set.super_sbox, *join.pairs)
-        stats = {}
-        got = w2.mt_chunks(*args, any_hit=any_hit)
-        want = w2.mt_chunks_reference(*args, any_hit=any_hit, stats=stats)
-        torch.cuda.synchronize()
-        err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
-        mism = int((got[1] != want[1]).sum())
-        exact = all(torch.equal(g, w) for g, w in zip(got, want))
-        label = "any-hit" if any_hit else "closest"
-        chunks = join.block_cluster.shape[0]
-        log(f"kernel vs twin [{label}]: chunks={chunks} live_chunks={stats['live_chunks']} "
-            f"open (chunk, row, sub) gates={stats['open_gates']} max_abs_diff={err} "
-            f"tri_mismatches={mism} hits={int((got[1] >= 0).sum())}")
-        check(exact, f"wave2_mt kernel equals its twin bit for bit ({label})")
-        ms = cuda_ms(lambda: w2.mt_chunks(*args, any_hit=any_hit))
-        plain_ms = cuda_ms(lambda: w2.mt_chunks_reference(*args, any_hit=any_hit), reps=5, warmup=1)
-        # each chunk's 1,024 pairs: 7 inputs + 5 outputs; each live chunk's super block read once
-        n_bytes = chunks * w2.CHUNK * (7 + 5) * 4 + stats["live_chunks"] * (8 * k * 16 + 8 * 8) * 4
-        n_ops = stats["open_gates"] * 128 * k * MT_OPS
-        b_ms, b_by = bound_ms(n_bytes, n_ops)
-        log(f"time [{label}] at the window shape: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
-            f"by {b_by} ({n_bytes} bytes, {n_ops} operations) ({smi})")
-        if not any_hit:
-            rows["wave2_mt"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        else:
-            rows["wave2_mt"]["max_abs_err"] = max(rows["wave2_mt"]["max_abs_err"], err)
 
     # --- 4. the wave2 engine, kernel path against twin path ----------------
     for label, (o, d) in (("coherent", coherent_rays(w2.SUBWAVE)),
@@ -261,6 +232,7 @@ def main():
     check(w2.mt_chunks.launches > 0, "the mesh render launched the wave2_mt kernel")
     check(overflow == 0, "traversal overflow is 0")
     check(bool(np.isfinite(radiance).all()) and radiance.mean() > 0, "radiance finite with non-zero mean")
+    profiled_pass(vp, "mesh200k_mis [wave2]", named=("wave2_mt",))
 
     cscene, cmeta = cornell_box(device=dev)
     t_kw, c_kw = cornell_camera_kw()

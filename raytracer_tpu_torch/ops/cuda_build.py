@@ -31,6 +31,7 @@ NVCC_FLAGS = (
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FUNCS: dict[tuple[str, str], object] = {}
 # per kernel: {"seconds": build time (0.0 if reused), "log": nvcc/ptxas output}
 BUILD_INFO: dict[str, dict] = {}
 
@@ -93,3 +94,15 @@ def load_kernel_library(name: str) -> ctypes.CDLL:
         if name not in _LIBS:
             _LIBS[name] = ctypes.CDLL(_paths(name)[1])
         return _LIBS[name]
+
+
+def kernel_function(name: str, symbol: str, argtypes):
+    """The C launch function ``symbol`` of ``csrc/<name>.cu``, resolved and
+    typed once per process; it returns the CUDA error of its launch as an
+    int (0 = none)."""
+    fn = _FUNCS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load_kernel_library(name), symbol)
+        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+        _FUNCS[(name, symbol)] = fn
+    return fn

@@ -2,9 +2,11 @@
 ``triv`` / ``triv_grid`` Pallas probes of ``tools/probe_r4.py``).
 
 The kernel exists to measure what launching a kernel of the port's own costs
-on the card, as one thread block over the whole array and as one thread block
-per 1,024 elements; ``tools/torch_probe_launch.py`` times it beside the same
-sum through PyTorch.  Nothing on a render path calls it.
+on the card, as one launch of a grid sized to the card that strides over the
+whole array and as one thread block per 1,024 elements;
+``tools/torch_probe_launch.py`` times both beside the same sum through
+PyTorch and beside ``empty_launch``, a kernel that does nothing.  Nothing on a
+render path calls it.
 """
 
 from __future__ import annotations
@@ -22,23 +24,22 @@ def add_one_reference(x):
 def add_one(x, grid: bool = False):
     """``x + 1`` for a contiguous float32 tensor.  CPU tensors take the plain
     version; CUDA tensors launch ``csrc/add_one.cu`` (counted in
-    ``add_one.launches``) as one thread block (``grid=False``) or as one
-    thread block per 1,024 elements (``grid=True``), or raise."""
+    ``add_one.launches``) as one block per SM striding over the array
+    (``grid=False``) or as one thread block per 1,024 elements
+    (``grid=True``), or raise.  The kernel moves 16 bytes at a time where
+    both pointers allow it and single floats elsewhere."""
     if x.device.type == "cpu":
         return add_one_reference(x)
     if x.device.type != "cuda":
         raise ValueError(f"add_one: unsupported device {x.device}")
     if x.dtype != torch.float32 or not x.is_contiguous() or x.numel() >= 2 ** 31:
         raise ValueError("add_one: input does not match the kernel's dtype, size or layout")
-    from .cuda_build import load_kernel_library
+    from .cuda_build import kernel_function
 
-    fn = load_kernel_library("add_one").add_one_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    fn = kernel_function("add_one", "add_one_launch",
+                         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     out = torch.empty_like(x)
-    rc = fn(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()), x.numel(), int(grid),
-            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+    rc = fn(x.data_ptr(), out.data_ptr(), x.numel(), int(grid), torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"add_one kernel launch failed: cudaError {rc}")
     add_one.launches += 1
@@ -46,3 +47,16 @@ def add_one(x, grid: bool = False):
 
 
 add_one.launches = 0
+
+
+def empty_launch(device):
+    """Launch a kernel that does nothing on ``device``'s current stream: what
+    a launch costs when the kernel costs nothing.  CUDA devices only."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"empty_launch: unsupported device {device}")
+    from .cuda_build import kernel_function
+
+    rc = kernel_function("add_one", "empty_launch", [ctypes.c_void_p])(torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"empty kernel launch failed: cudaError {rc}")

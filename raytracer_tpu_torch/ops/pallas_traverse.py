@@ -278,14 +278,11 @@ def _check_phase2_inputs(name, cand, entry, rays, dev):
 def _launch_phase2(name, fn_name, tables, cand, entry, rays, ints):
     """Allocate (t, tri, u, v), launch ``lib.<fn_name>`` on the current
     stream and raise when the launch is refused."""
-    from .cuda_build import load_kernel_library
+    from .cuda_build import kernel_function
 
     dev = rays[0].device
-    fn = getattr(load_kernel_library(name), fn_name)
-    if fn.argtypes is None:
-        n_ptr = 2 + len(tables) + len(rays) + 4
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * len(ints) + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    n_ptr = 2 + len(tables) + len(rays) + 4
+    fn = kernel_function(name, fn_name, [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
     t = torch.empty_like(rays[0])
     tri = torch.empty_like(rays[0], dtype=torch.int32)
     u = torch.empty_like(t)

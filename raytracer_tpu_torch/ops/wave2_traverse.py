@@ -197,7 +197,8 @@ def mt_chunks_reference(block_cluster, super_geom, super_sbox, ox, oy, oz, dx, d
     """Plain PyTorch twin of ``csrc/wave2_mt.cu`` (and of the TPU
     ``_mt_kernel``): vectorized over (chunk, 8 triangle slots, row, lane).
     Returns (t, tri, u, v, done), each (B2, ROWS, 128).  ``stats`` receives
-    'open_gates', the (chunk, row, sub) gates that pass on these inputs, and
+    'open_gates', the (chunk, row, sub) gates that pass on these inputs,
+    'row_gates', their count per row of the live chunks (n_live, ROWS), and
     'live_chunks', the chunks that name a real super."""
     cs = super_geom.shape[0]
     k = super_geom.shape[1] // SUB_PER_SUPER
@@ -224,6 +225,7 @@ def mt_chunks_reference(block_cluster, super_geom, super_sbox, ox, oy, oz, dx, d
     row_open = sub_hit.any(-1)  # (B2, R, 8)
     if stats is not None:
         stats["open_gates"] = int((row_open & live).sum())
+        stats["row_gates"] = row_open[live[:, 0, 0]].sum(-1)
         stats["live_chunks"] = int(live.sum())
 
     # running best per (triangle slot x pair): dim 1 is the slot
@@ -298,32 +300,28 @@ def mt_chunks(block_cluster, super_geom, super_sbox, ox, oy, oz, dx, dy, dz, tl,
     b2 = block_cluster.shape[0]
     cs, rows8k, lanes = super_geom.shape
     k = rows8k // SUB_PER_SUPER
+    ins = (block_cluster, super_geom, super_sbox) + pairs
+    ptrs = [a.data_ptr() for a in ins]
     ok = (
         block_cluster.dtype == torch.int32 and block_cluster.dim() == 1
         and super_geom.dtype == torch.float32 and lanes == 16 and k % 8 == 0 and 0 < k <= 128
         and super_sbox.dtype == torch.float32 and tuple(super_sbox.shape) == (cs, SUB_PER_SUPER, 8)
         and all(a.dtype == torch.float32 and tuple(a.shape) == (b2, ROWS, 128) for a in pairs)
-        and all(a.device == dev and a.is_contiguous()
-                for a in (block_cluster, super_geom, super_sbox) + pairs)
+        and all(a.device == dev and a.is_contiguous() for a in ins)
+        and ptrs[1] % 16 == 0 and ptrs[2] % 16 == 0  # the kernel reads geometry and boxes 16 bytes at a time
     )
     if not ok:
-        raise ValueError("mt_chunks: inputs do not match the kernel's dtypes, shapes, device or layout")
-    from .cuda_build import load_kernel_library
+        raise ValueError("mt_chunks: inputs do not match the kernel's dtypes, shapes, device, layout or alignment")
+    from .cuda_build import kernel_function
 
-    lib = load_kernel_library("wave2_mt")
-    fn = lib.wave2_mt_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    t = torch.empty((b2, ROWS, 128), dtype=torch.float32, device=dev)
-    tri = torch.empty((b2, ROWS, 128), dtype=torch.int32, device=dev)
-    u = torch.empty_like(t)
-    v = torch.empty_like(t)
-    done = torch.empty_like(tri)
-    ptr = lambda a: ctypes.c_void_p(a.data_ptr())
-    rc = fn(ptr(block_cluster), ptr(super_geom), ptr(super_sbox), *(ptr(a) for a in pairs),
-            ptr(t), ptr(tri), ptr(u), ptr(v), ptr(done), b2, cs, k, int(any_hit),
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    fn = kernel_function("wave2_mt", "wave2_mt_launch",
+                         [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    # one allocation for the five (b2, ROWS, 128) results; tri and done are its int32 views
+    out = torch.empty((5, b2, ROWS, 128), dtype=torch.float32, device=dev)
+    t, tri, u, v, done = out[0], out[1].view(torch.int32), out[2], out[3], out[4].view(torch.int32)
+    o0, plane = out.data_ptr(), b2 * CHUNK * 4
+    rc = fn(*ptrs, o0, o0 + plane, o0 + 2 * plane, o0 + 3 * plane, o0 + 4 * plane, b2, cs, k, int(any_hit),
+            torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"wave2_mt kernel launch failed: cudaError {rc}")
     mt_chunks.launches += 1

@@ -60,6 +60,90 @@ def incoherent_rays(n, rng, spread=4.0):
     return o, d
 
 
+def tie_case(k, seed, n_supers=3, n_chunks=8):
+    """Hand-built inputs of ``mt_chunks`` that force ties: numpy arrays
+    (block_cluster (B2,), super_geom (Cs, 8k, 16), super_sbox (Cs, 8, 8),
+    seven pair arrays (B2, 8, 128)).
+
+    Every super holds 8 well-separated subs of ``k`` random triangles (the
+    last row of each sub is padding, tri id -1) with ids in random order.
+    Some triangles are copied under another id, lower in one super and
+    higher in the next: into another slot of the same sub, into the same
+    slot of another sub, into another slot of another sub, into two places
+    at once and, where k > 8, into the same slot of the same sub.  Rays are
+    aimed at points inside triangles, half of them at copied ones, so equal
+    t from different ids is the rule.  Lanes mix closest-hit limits (3e38
+    and just behind the target), any-hit lanes (tl < 0) and fillers
+    (tl == 0); row 5 of every chunk aims at sub 0 but for lane 17, which
+    alone opens sub 7; row 6 is fillers but for 4 lanes; the chunk table
+    names every super twice and the sentinel twice."""
+    rng = np.random.default_rng(seed)
+    cs, nrow = n_supers, 8 * k
+    origin = lambda c, s: np.array([8.0 * c + 2.0 * (s & 1), 2.0 * ((s >> 1) & 1), 2.0 * (s >> 2)], np.float32)
+    geom = np.zeros((cs, nrow, 16), np.float32)
+    for c in range(cs):
+        for s in range(8):
+            rows = slice(s * k, (s + 1) * k)
+            geom[c, rows, 0:3] = origin(c, s) + rng.uniform(0.0, 0.7, (k, 3))
+            e1 = rng.normal(size=(k, 3))
+            e2 = np.cross(e1, rng.normal(size=(k, 3)))  # at right angles to e1: no slivers
+            geom[c, rows, 3:6] = e1 / np.linalg.norm(e1, axis=1, keepdims=True) * rng.uniform(0.2, 0.4, (k, 1))
+            geom[c, rows, 6:9] = e2 / np.linalg.norm(e2, axis=1, keepdims=True) * rng.uniform(0.2, 0.4, (k, 1))
+    geom[:, :, 9] = rng.permutation(cs * nrow).reshape(cs, nrow)
+    # (sub, row in sub) of the original -> the copies
+    copies = [((1, 2), [(1, 5)]), ((2, 3), [(3, 3)]), ((4, 0), [(5, 6)]), ((6, 1), [(6, 4), (7, 2)])]
+    if k > 8:
+        copies.append(((0, 1), [(0, 9)]))
+    targets = []
+    for c in range(cs):
+        for gi, ((s0, j0), dests) in enumerate(copies):
+            src = s0 * k + j0
+            targets.append((c, src))
+            for s1, j1 in dests:
+                dst = s1 * k + j1
+                ids = sorted((geom[c, src, 9], geom[c, dst, 9]), reverse=(gi + c) % 2 == 0)
+                geom[c, dst, 0:9] = geom[c, src, 0:9]
+                geom[c, src, 9], geom[c, dst, 9] = ids
+    geom[:, k - 1::k, 9] = -1.0  # the last row of each sub is padding
+    real = geom[..., 9] >= 0
+    corners = np.stack([geom[..., 0:3], geom[..., 0:3] + geom[..., 3:6], geom[..., 0:3] + geom[..., 6:9]], 2)
+    sbox = np.zeros((cs, 8, 8), np.float32)
+    for c in range(cs):
+        for s in range(8):
+            pts = corners[c, s * k:(s + 1) * k][real[c, s * k:(s + 1) * k]].reshape(-1, 3)
+            sbox[c, s, 0:3], sbox[c, s, 3:6] = pts.min(0), pts.max(0)
+
+    table = np.array(([*range(cs), cs] * 2 * n_chunks)[:n_chunks], np.int32)
+    shape = (n_chunks, 8, 128)
+    c_of = np.minimum(table, cs - 1)[:, None, None] * np.ones(shape, np.int64)
+    row_of = rng.integers(0, nrow, shape)
+    row_of[:, 5, :] = rng.integers(0, k - 1, (n_chunks, 128))  # row 5 aims at sub 0 ...
+    row_of[:, 5, 17] = 7 * k  # ... but for one lane, alone in sub 7
+    to_copy = rng.random(shape) < 0.5
+    to_copy[:, 5, :] = False
+    pick = rng.integers(0, len(copies), shape)
+    row_of = np.where(to_copy, np.array([s0 * k + j0 for (s0, j0), _ in copies])[pick], row_of)
+    tri = geom[c_of, row_of]
+    a, b = rng.uniform(0.1, 0.4, shape + (1,)), rng.uniform(0.1, 0.4, shape + (1,))
+    point = tri[..., 0:3] + a * tri[..., 3:6] + b * tri[..., 6:9]
+    normal = np.cross(tri[..., 3:6], tri[..., 6:9])
+    d = normal / np.linalg.norm(normal, axis=-1, keepdims=True) + rng.normal(size=shape + (3,)) * 0.4  # not grazing
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    dist = rng.uniform(0.2, 0.5, shape)
+    o = point - d * dist[..., None]
+    kind = rng.random(shape)
+    kind[:, 5, :] = 0.3  # row 5: closest-hit lanes that end just behind their target
+    kind[:, 6, :] = 1.0  # row 6: fillers ...
+    kind[:, 6, 3:120:31] = 0.1  # ... but for 4 lanes
+    tl = np.select([kind < 0.25, kind < 0.5, kind < 0.8], [BIGF, dist + 0.1, -(dist + 0.1)], 0.0)
+    filler = tl == 0.0
+    o = np.where(filler[..., None], 0.0, o)
+    d = np.where(filler[..., None], np.array([1.0, 0.0, 0.0]), d)
+    f32 = lambda x: np.ascontiguousarray(x, np.float32)
+    pairs = [f32(o[..., i]) for i in range(3)] + [f32(d[..., i]) for i in range(3)] + [f32(tl)]
+    return table, geom, sbox, pairs
+
+
 def vec(a, dev):
     t = torch.as_tensor(a, device=dev)
     return Vec3(t[:, 0].contiguous(), t[:, 1].contiguous(), t[:, 2].contiguous())
@@ -213,6 +297,90 @@ def check_kernels(cs, dev, log=print, reps=20, plain_reps=20, n_coherent=262_144
     return rows
 
 
+def _window_chunks(cs, o, d, tl, dev):
+    """One traversal window as ``mt_chunks`` sees it: the engine's candidate
+    extraction (kc = 16) and sort-join on (n, 3) rays with limits ``tl``."""
+    ro, rd = vec(o, dev), vec(d, dev)
+    tl = torch.as_tensor(tl, dtype=torch.float32, device=dev).expand(o.shape[0]).contiguous()
+    cursor = torch.full_like(tl, -1, dtype=torch.int32)
+    cand, _ = w2._p1_extract(cs, *ro, *rd, tl, cursor, min(w2.KC, cs.num_supers))
+    join = w2._pair_join(cs, cand, *ro, *rd, tl)
+    return (join.block_cluster, cs.super_geom, cs.super_sbox, *join.pairs)
+
+
+def _mt_case(label, args, any_hit, log):
+    """``mt_chunks`` against its twin on one input: bit-equal or exit.
+    Returns (largest absolute difference, the twin's gate counts)."""
+    stats = {}
+    got = w2.mt_chunks(*args, any_hit=any_hit)
+    want = w2.mt_chunks_reference(*args, any_hit=any_hit, stats=stats)
+    if args[0].device.type == "cuda":
+        torch.cuda.synchronize()
+    err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+    log(f"kernel vs twin [{label}]: chunks={args[0].shape[0]} live_chunks={stats['live_chunks']} "
+        f"open (chunk, row, sub) gates={stats['open_gates']} max_abs_diff={err} "
+        f"tri_mismatches={int((got[1] != want[1]).sum())} hits={int((got[1] >= 0).sum())}")
+    rows = stats["row_gates"].float()
+    if rows.numel():  # a row's subs are folded in order: the fullest row of a chunk sets how long the chunk takes
+        log(f"gates per row [{label}]: mean {float(rows.mean()):.3f}, mean over chunks of the fullest row "
+            f"{float(rows.max(1).values.mean()):.3f}, rows with all 8 open {float((rows == 8).float().mean()):.3f}")
+    check(all(torch.equal(g, w) for g, w in zip(got, want)), f"wave2_mt kernel equals its twin bit for bit ({label})", log)
+    return err, stats
+
+
+def check_wave2_kernel(cs, dev, log=print, reps=20, plain_reps=5, n_rays=w2.SUBWAVE):
+    """The wave2 Möller-Trumbore kernel against its plain twin, closest-hit
+    and any-hit, bit-equal or exit: on one real window of ``n_rays``
+    incoherent rays against ``cs`` (timed: the kernel's table row), on the
+    hand-built tie cases (K = 8 and 16), and on windows of mixed closest,
+    any-hit and idle rays against K = 8 and K = 128 cluster sets of a
+    20k-triangle mesh (the shared-memory size and the loop depend on K)."""
+    import bench_mesh
+    from raytracer_tpu_torch.scene.clusters import build_clusters
+
+    k = cs.tris_per_cluster
+    rng = np.random.default_rng(7)
+    o, d = incoherent_rays(n_rays, rng)
+    row = {"name": "wave2_mt", "route": "cuda", "source": "raytracer_tpu_torch/csrc/wave2_mt.cu",
+           "replaces": "raytracer_tpu/ops/wave2_traverse.py:324", "launches": 0, "library_ms": None,
+           "max_abs_err": 0.0}
+    for any_hit, tl_value in ((False, BIGF), (True, 4.0)):
+        args = _window_chunks(cs, o, d, tl_value, dev)
+        label = "any-hit" if any_hit else "closest"
+        err, stats = _mt_case(f"window K={k} {label}", args, any_hit, log)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        ms = cuda_ms(lambda: w2.mt_chunks(*args, any_hit=any_hit), reps=reps)
+        plain_ms = cuda_ms(lambda: w2.mt_chunks_reference(*args, any_hit=any_hit), reps=plain_reps, warmup=1)
+        # each chunk's 1,024 pairs: 7 inputs + 5 outputs; each live chunk's super block read once
+        n_bytes = args[0].shape[0] * w2.CHUNK * (7 + 5) * 4 + stats["live_chunks"] * (8 * k * 16 + 8 * 8) * 4
+        n_ops = stats["open_gates"] * 128 * k * MT_OPS
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        log(f"time [{label}] at the window shape: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
+            f"by {b_by} ({n_bytes} bytes, {n_ops} operations); the same operations without fused "
+            f"multiply-adds, one instruction each: {2 * n_ops / H100_F32_OPS_PER_S * 1e3:.6f} ms")
+        if not any_hit:
+            row.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+    cases = []
+    for tk in (8, 16):
+        table, geom, sbox, pairs = tie_case(tk, seed=0)
+        cases.append((f"ties K={tk}", tuple(torch.as_tensor(x, device=dev) for x in (table, geom, sbox, *pairs))))
+    verts, faces = bench_mesh.make_mesh(20_000)
+    tri = verts[faces].astype(np.float32)
+    o, d = incoherent_rays(min(n_rays, 16_384), rng)
+    u = rng.random(o.shape[0])
+    tl = np.where(u < 0.3, -rng.uniform(1.0, 20.0, o.shape[0]), BIGF).astype(np.float32)
+    tl[u > 0.95] = 0.0
+    for sk in (8, 128):
+        small = build_clusters(tri[:, 0], tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0], k=sk, device=dev)
+        cases.append((f"mixed window K={sk}", _window_chunks(small, o, d, tl, dev)))
+    for label, args in cases:
+        for any_hit in (False, True):
+            err, _ = _mt_case(f"{label} {'any-hit' if any_hit else 'closest'}", args, any_hit, log)
+            row["max_abs_err"] = max(row["max_abs_err"], err)
+    return row
+
+
 def _same(a, b):
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
@@ -283,6 +451,7 @@ def main():
     cs = build_clusters(tri[:, 0], tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0], device=dev)
     print(f"clusters: {cs.num_clusters} x {cs.tris_per_cluster}")
     if on_card:
+        check_wave2_kernel(cs, dev, n_rays=n_rays)
         check_kernels(cs, dev, n_coherent=4 * n_rays, n_incoherent=n_rays)
     check_engines(cs, dev, n_rays=n_rays, on_card=on_card)
 

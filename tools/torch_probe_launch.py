@@ -6,10 +6,12 @@ and of ``tools/probe_r5c.py::stage_pallas``).
 
 Needs one CUDA device.  ``probe_dispatch``: the cost per call of ``x + 1``
 on a (2048, 128) float32 array through PyTorch, through the hand-written
-``add_one`` kernel as one thread block, and as 256 thread blocks, chained
-(each call reads the one before).  ``probe_mt_chunks``: the bare wave2
-Möller-Trumbore kernel at 64 (live and all-sentinel), 512, 1,024 and 4,096
-chunks, which separates its fixed cost from its size-dependent cost.
+``add_one`` kernel as one grid sized to the card, and as 256 thread blocks,
+chained (each call reads the one before), beside a kernel that does nothing.
+``probe_mt_chunks``: the bare wave2 Möller-Trumbore kernel at 64 (live and
+all-sentinel), 512, 1,024 and 4,096 chunks, which separates its fixed cost
+from its size-dependent cost; before it, the kernel is held against its twin
+and timed at one real window.
 Imports torch, numpy and the port only.
 """
 
@@ -26,8 +28,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from raytracer_tpu_torch.ops import wave2_traverse as w2  # noqa: E402
-from raytracer_tpu_torch.ops.launch_probe import add_one, add_one_reference  # noqa: E402
-from torch_check_traverse import cuda_ms, incoherent_rays  # noqa: E402
+from raytracer_tpu_torch.ops.launch_probe import add_one, add_one_reference, empty_launch  # noqa: E402
+from torch_check_traverse import check_wave2_kernel, cuda_ms, incoherent_rays  # noqa: E402
 
 PROBE_SHAPE = (2048, 128)
 
@@ -61,16 +63,24 @@ def graph_us(fn, x, n=100, reps=20):
 
 def check_add_one(dev, log=print) -> float:
     """``add_one`` in both launch forms against its plain version: equal or
-    exit.  Returns the largest absolute difference."""
-    r = torch.arange(PROBE_SHAPE[0] * PROBE_SHAPE[1], dtype=torch.float32, device=dev).reshape(PROBE_SHAPE)
+    exit.  The probe's shape, sizes that end in a partial tile or a partial
+    float4, and a view that starts 4 bytes past a 16-byte boundary.  Returns
+    the largest absolute difference."""
+    n_probe = PROBE_SHAPE[0] * PROBE_SHAPE[1]
+    base = torch.arange(n_probe + 4, dtype=torch.float32, device=dev)
+    inputs = [("the probe's shape", base[:n_probe].reshape(PROBE_SHAPE))]
+    inputs += [(f"{n} elements", base[:n]) for n in (1, 1023, 1025, n_probe + 3)]
+    inputs += [(f"{n} elements, unaligned", base[1:1 + n]) for n in (1024, n_probe + 3)]
     err = 0.0
-    for grid in (False, True):
-        got, want = add_one(r, grid=grid), add_one_reference(r)
-        torch.cuda.synchronize()
-        err = max(err, float((got - want).abs().max()))
-        if not torch.equal(got, want):
-            raise SystemExit(f"FAIL: add_one(grid={grid}) differs from its plain version")
-    log("ok: add_one equals its plain version bit for bit (one block, 256 blocks)")
+    for label, x in inputs:
+        for grid in (False, True):
+            got, want = add_one(x, grid=grid), add_one_reference(x)
+            torch.cuda.synchronize()
+            err = max(err, float((got - want).abs().max()))
+            if not torch.equal(got, want):
+                raise SystemExit(f"FAIL: add_one(grid={grid}) differs from its plain version ({label})")
+    log(f"ok: add_one equals its plain version bit for bit in both launch forms ({len(inputs)} inputs: "
+        f"{', '.join(label for label, _ in inputs)})")
     return err
 
 
@@ -78,24 +88,34 @@ def probe_dispatch(dev, log=print):
     """Microseconds per chained call of ``x + 1`` through PyTorch and through
     the ``add_one`` kernel in both launch forms: dispatched from the host
     (``*_us``, host clock) and replayed from a CUDA graph (``*_graph_us``,
-    device time without the host's dispatch)."""
+    device time without the host's dispatch).  ``empty_graph_us`` is a kernel
+    that does nothing in the same replay: the floor of a launch."""
     x = torch.zeros(PROBE_SHAPE, dtype=torch.float32, device=dev)
-    forms = {"torch_add": add_one_reference, "add_one": lambda y: add_one(y, grid=False),
-             "add_one_grid": lambda y: add_one(y, grid=True)}
+
+    def empty(y):
+        empty_launch(dev)
+        return y
+
+    # torch first and last: the order of the forms is not what separates them
+    forms = (("torch_add", add_one_reference), ("add_one", lambda y: add_one(y, grid=False)),
+             ("add_one_grid", lambda y: add_one(y, grid=True)), ("empty", empty),
+             ("torch_add_again", add_one_reference))
     out = {}
-    for name, fn in forms.items():
+    for name, fn in forms:
         out[f"{name}_us"] = chain_us(fn, x)
         out[f"{name}_graph_us"] = graph_us(fn, x)
     for key, what in (("us", "dispatched from the host"), ("graph_us", "replayed from a CUDA graph")):
         log(f"dispatch probe {PROBE_SHAPE} f32, chained, {what}, us per call: torch x+1 "
-            f"{out['torch_add_' + key]:.3f}, add_one as one block {out['add_one_' + key]:.3f}, "
-            f"add_one as 256 blocks {out['add_one_grid_' + key]:.3f}")
+            f"{out['torch_add_' + key]:.3f} (again after the others: {out['torch_add_again_' + key]:.3f}), "
+            f"add_one as one block per SM {out['add_one_' + key]:.3f}, "
+            f"add_one as 256 blocks {out['add_one_grid_' + key]:.3f}, an empty kernel {out['empty_' + key]:.3f}")
     return out
 
 
 def probe_mt_chunks(cs, dev, log=print, sizes=((64, True), (64, False), (512, True), (1024, True), (4096, True))):
     """Milliseconds of one ``mt_chunks`` launch per (chunks, live) size: the
-    chunk table names real supers in turn, or only the sentinel."""
+    chunk table names real supers in turn, or only the sentinel.  The gates
+    that open on these rays (counted by the twin) are the work it did."""
     rng = np.random.default_rng(7)
     n_sup = cs.num_supers
     out = {}
@@ -106,9 +126,13 @@ def probe_mt_chunks(cs, dev, log=print, sizes=((64, True), (64, False), (512, Tr
         ch = lambda a: torch.as_tensor(a, device=dev).reshape(b2, w2.ROWS, 128).contiguous()
         pairs = [ch(o[:, i]) for i in range(3)] + [ch(d[:, i]) for i in range(3)]
         pairs.append(torch.full((b2, w2.ROWS, 128), 100.0, device=dev))
-        ms = cuda_ms(lambda: w2.mt_chunks(tab, cs.super_geom, cs.super_sbox, *pairs, any_hit=False), reps=10)
+        args = (tab, cs.super_geom, cs.super_sbox, *pairs)
+        ms = cuda_ms(lambda: w2.mt_chunks(*args, any_hit=False), reps=10)
+        stats = {}
+        w2.mt_chunks_reference(*args, any_hit=False, stats=stats)
         out[(b2, live)] = ms
-        log(f"mt_chunks probe: {b2} chunks, {'live' if live else 'all-sentinel'}: {ms:.4f} ms")
+        log(f"mt_chunks probe: {b2} chunks, {'live' if live else 'all-sentinel'}: {ms:.4f} ms "
+            f"({stats['open_gates']} open (chunk, row, sub) gates)")
     return out
 
 
@@ -125,6 +149,7 @@ def main():
     verts, faces = bench_mesh.make_mesh(200_000)
     tri = verts[faces].astype(np.float32)
     cs = build_clusters(tri[:, 0], tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0], device=dev)
+    check_wave2_kernel(cs, dev)  # the kernel is right, and its time at one real window
     probe_mt_chunks(cs, dev)
 
 
