@@ -25,11 +25,19 @@ Phases (any failure exits non-zero before the last line):
    kernel's launches counted, one profiled pass, and the Cornell box at
    512^2 (8 passes).
 6. (with 2) the three new libraries' ptxas output.
-7. block-candidate kernels vs plain versions at the path's shapes
-   (tools/torch_check_traverse.py::check_kernels): phase2_grid on dense
-   (kb=48) and BFS (kb=256) candidates, phase2_stream closest-hit and any-hit
-   (kb=256), on 256 coherent camera blocks and one incoherent 65,536-ray
-   window: bit-equal or FAIL; both timed; the visits give the bound.
+7. block-candidate kernels vs plain versions
+   (tools/torch_check_traverse.py::check_kernels): how many ray blocks
+   (thread-block clusters) of each kernel the card holds at once; then, at the
+   path's shapes, phase2_grid on dense (kb=48) and BFS (kb=256) candidates and
+   phase2_stream closest-hit and any-hit (kb=256), on 256 coherent camera
+   blocks and one incoherent 65,536-ray window: bit-equal or FAIL; both
+   timed; the visits give the bound.  Then, bit-equal or FAIL and untimed:
+   the hand-built tie and edge cases (equal t in two slots and in two
+   candidates, pad slots and pad rays, a block that ends at j = 0, a block of
+   +inf entries, kb = 1 and kb = 300, B = 1 and odd B, K = 8 to 128) and
+   mixed windows against K = 8 and K = 128 cluster sets.  Every case prints
+   the spread of steps over its ray blocks (mean, max): the slowest ray block
+   sets a kernel's time.
 8. block-candidate engines (check_engines): pallas_cluster_closest_hit /
    any_hit, pallas_sorted_closest_hit / any_hit, _pallas_sorted_closest_hit,
    kernel path against plain path: equal.  Their agreement with wave2 and

@@ -303,11 +303,13 @@ def phase2_grid_reference(cand, entry, tri_block, tri_id, ox, oy, oz, dx, dy, dz
     Möller-Trumbore against cluster ``cand[b, j]``; the others skip it.
     Vectorised over the live blocks.  Returns (t, tri, u, v), each
     (B, 8, 128).  ``stats`` counts 'visits', the (block, candidate) steps
-    that ran, and 'touched', the distinct clusters they read."""
+    that ran, 'block_visits', the same per ray block (B,), and 'touched', the
+    distinct clusters they read."""
     k = tri_id.shape[1]
     touched = torch.zeros(tri_id.shape[0], dtype=torch.bool, device=tm.device)
     if stats is not None:
         stats.setdefault("visits", 0)
+        stats["block_visits"] = torch.zeros(cand.shape[0], dtype=torch.int64, device=tm.device)
     rays = (ox, oy, oz, dx, dy, dz)
     t = tm.clone()
     tri = torch.full_like(tm, -1, dtype=torch.int32)
@@ -320,6 +322,7 @@ def phase2_grid_reference(cand, entry, tri_block, tri_id, ox, oy, oz, dx, dy, dz
         c = cand[live, j].long()
         if stats is not None:
             stats["visits"] += live.numel()
+            stats["block_visits"][live] += 1
             touched[c] = True
         out = _mt_candidate(tri_block[c].reshape(-1, k, 9), tri_id[c], tuple(a[live] for a in rays),
                             t[live], tri[live], u[live], v[live], any_hit=False)
@@ -342,11 +345,13 @@ def phase2_grid(cand, entry, tri_block, tri_id, ox, oy, oz, dx, dy, dz, tm):
         raise ValueError(f"phase2_grid: unsupported device {dev}")
     _check_phase2_inputs("phase2_grid", cand, entry, rays, dev)
     c, k = tri_id.shape
+    # the kernel's copy engine moves 16 bytes at a time: rows of k*36 and k*4 bytes
     ok = (tri_block.dtype == torch.float32 and tuple(tri_block.shape) == (c, k * 9)
-          and tri_id.dtype == torch.int32 and 0 < k <= 128
-          and all(a.device == dev and a.is_contiguous() for a in (tri_block, tri_id)))
+          and tri_id.dtype == torch.int32 and 0 < k <= 128 and k % 4 == 0
+          and all(a.device == dev and a.is_contiguous() and a.data_ptr() % 16 == 0 for a in (tri_block, tri_id)))
     if not ok:
-        raise ValueError("phase2_grid: cluster tables do not match the kernel's dtypes, shapes, device or layout")
+        raise ValueError("phase2_grid: cluster tables do not match the kernel's dtypes, shapes (k a multiple of 4), "
+                         "device, layout or 16-byte alignment")
     out = _launch_phase2("phase2_grid", "phase2_grid_launch", (tri_block, tri_id), cand, entry, rays,
                          (cand.shape[0], cand.shape[1], k))
     phase2_grid.launches += 1
@@ -365,8 +370,9 @@ def phase2_stream_reference(cand, entry, stream_block, ox, oy, oz, dx, dy, dz, t
     triangle loop runs for the WHOLE block iff any of its rays passes.
     Vectorised over the blocks still in their loop.  Returns (t, tri, u, v),
     each (B, 8, 128).  ``stats`` counts 'steps' (loop iterations), 'visits'
-    (iterations that ran the triangle loop) and 'touched' (distinct clusters
-    whose tile was read)."""
+    (iterations that ran the triangle loop), 'block_steps' and 'block_visits'
+    (the same per ray block, (B,)) and 'touched' (distinct clusters whose
+    tile was read)."""
     rays = (ox, oy, oz, dx, dy, dz)
     ix, iy, iz = slab_inv(dx), slab_inv(dy), slab_inv(dz)
     tiles = stream_block.reshape(stream_block.shape[0], -1)
@@ -379,6 +385,8 @@ def phase2_stream_reference(cand, entry, stream_block, ox, oy, oz, dx, dy, dz, t
     if stats is not None:
         stats.setdefault("steps", 0)
         stats.setdefault("visits", 0)
+        stats["block_steps"] = torch.zeros(cand.shape[0], dtype=torch.int64, device=tm.device)
+        stats["block_visits"] = torch.zeros(cand.shape[0], dtype=torch.int64, device=tm.device)
     for j in range(cand.shape[1]):
         walking = walking & (entry[:, j] < t.amax((1, 2)))
         step = walking.nonzero()[:, 0]
@@ -393,6 +401,8 @@ def phase2_stream_reference(cand, entry, stream_block, ox, oy, oz, dx, dy, dz, t
         if stats is not None:
             stats["steps"] += step.numel()
             stats["visits"] += int(run.sum())
+            stats["block_steps"][step] += 1
+            stats["block_visits"][step[run]] += 1
             touched[c] = True
         live, tile = step[run], tile[run]
         if live.numel() == 0:
@@ -420,9 +430,11 @@ def phase2_stream(cand, entry, stream_block, ox, oy, oz, dx, dy, dz, tm, k: int,
     ok = (stream_block.dtype == torch.float32 and stream_block.dim() == 3
           and stream_block.shape[1] % RB_SUB == 0 and stream_block.shape[2] == RB_LANE
           and 0 < k <= 128 and 10 * k + 6 <= stream_block.shape[1] * RB_LANE
-          and stream_block.device == dev and stream_block.is_contiguous())
+          and stream_block.device == dev and stream_block.is_contiguous()
+          and stream_block.data_ptr() % 16 == 0)  # the kernel's copy engine moves 16 bytes at a time
     if not ok:
-        raise ValueError("phase2_stream: stream_block does not match the kernel's dtype, shape, device or layout")
+        raise ValueError("phase2_stream: stream_block does not match the kernel's dtype, shape, device, layout or "
+                         "16-byte alignment")
     out = _launch_phase2("phase2_stream", "phase2_stream_launch", (stream_block,), cand, entry, rays,
                          (cand.shape[0], cand.shape[1], k, stream_block.shape[1] * RB_LANE, int(any_hit)))
     phase2_stream.launches += 1

@@ -204,38 +204,290 @@ def _sorted_blocks(cs, o, d, tm, kb):
     return cand, entry, overflow, rays
 
 
-def _kernel_case(label, kernel, plain, n_rays, bytes_ops, log, reps, plain_reps):
-    """Hold one kernel against its plain version on one input, time both and
-    work out the bound from the visits the plain version counted."""
+def phase2_tie_case(k, seed, b=3, kb=6, n_clusters=8, giant=False):
+    """Hand-built inputs of the two phase-2 kernels that force ties and edge
+    cases: a dict of numpy arrays (tri_block (C, 9k), tri_id (C, k), box_min /
+    box_max (C, 3), cand / entry (b, kb), rays: seven (b, 8, 128)).
+
+    ``n_clusters`` clusters of ``k`` random triangles sit 4 apart along x,
+    ids in random order.  In every cluster slot 1 is copied into slot 5 (equal
+    t in two slots of one cluster; the lower id first in every other
+    cluster) and slot 2 into slot 3 of the NEXT cluster (equal t in two
+    candidates: the earlier candidate wins), and the last slot keeps its
+    triangle but carries id -1 (a pad slot that rays are aimed at and must
+    not hit).  A block's candidates start with two neighbouring clusters and
+    go on at random, repeats allowed; every ray is aimed at a point inside a
+    triangle of one of its block's candidates, half of them at copied ones,
+    so any-hit lanes find their first hit in any slot.  Limits mix 3e38 and
+    just behind the target; even blocks keep their 3e38 rays (their loop never
+    ends early), odd blocks end just behind every target (their max t falls
+    and the entry test bites).  Pad rays (tm = 0) fill the end of row 7 and a
+    few lanes elsewhere.  ``entry`` is the block-min slab distance of the
+    candidate's box (+inf where no ray reaches it), in table order, NOT
+    sorted; then block 0 gets a +inf slot three from the end (the stream loop
+    ends there, the grid loop skips it), the last block (b >= 2) finite limits and
+    entry[-1, 0] = 1e30 (its stream loop ends at j = 0), the one before it
+    (b >= 3) all entries +inf.  With b >= 4 and kb >= 3, block 1 aims every
+    ray at a real triangle of its first candidate and ends it 0.1 behind, so
+    the max of t falls from about 0.6 to about 0.5 in step 0; its entry[1, 1]
+    = 0.55 is live before that step and dead after it (a kernel that fetched
+    it ahead must drop it) and entry[1, 2] = 0 stays live for the grid loop.
+    cand holds valid ids in every slot.
+
+    ``giant`` puts a triangle with edges (1e30, 0, 0) and (0, 1e8, 0) into
+    slot 0 of block 0's first candidate and aims lanes 0-7 of block 0 at it
+    along +z: its determinant is -1e38, beyond 2^125, so its reciprocal is a
+    denormal that only the IEEE division gives, and the rays hit at t = 1
+    with u = v = 0.3."""
+    rng = np.random.default_rng(seed)
+    c = n_clusters
+    geom = np.zeros((c, k, 9), np.float32)
+    for ci in range(c):
+        geom[ci, :, 0:3] = np.array([4.0 * ci, 0.0, 0.0], np.float32) + rng.uniform(0.0, 0.7, (k, 3))
+        e1 = rng.normal(size=(k, 3))
+        e2 = np.cross(e1, rng.normal(size=(k, 3)))  # at right angles to e1: no slivers
+        geom[ci, :, 3:6] = e1 / np.linalg.norm(e1, axis=1, keepdims=True) * rng.uniform(0.2, 0.4, (k, 1))
+        geom[ci, :, 6:9] = e2 / np.linalg.norm(e2, axis=1, keepdims=True) * rng.uniform(0.2, 0.4, (k, 1))
+    ids = rng.permutation(c * k).reshape(c, k).astype(np.int32)
+    for ci in range(c):
+        geom[ci, 5] = geom[ci, 1]
+        lo, hi = sorted((ids[ci, 1], ids[ci, 5]))
+        ids[ci, 1], ids[ci, 5] = (lo, hi) if ci % 2 == 0 else (hi, lo)
+    src = geom[:, 2].copy()
+    for ci in range(c):
+        geom[(ci + 1) % c, 3] = src[ci]
+    ids[:, k - 1] = -1
+    corners = np.stack([geom[..., 0:3], geom[..., 0:3] + geom[..., 3:6], geom[..., 0:3] + geom[..., 6:9]], 2)
+    real = (ids >= 0)[..., None, None]
+    box_min = np.where(real, corners, np.inf).min(axis=(1, 2)).astype(np.float32)
+    box_max = np.where(real, corners, -np.inf).max(axis=(1, 2)).astype(np.float32)
+
+    first = rng.integers(0, c, b)
+    cand = rng.integers(0, c, (b, kb)).astype(np.int32)
+    cand[:, 0] = first
+    if kb > 1:
+        cand[:, 1] = (first + 1) % c
+    shape = (b, 8, 128)
+    col = rng.integers(0, kb, shape)
+    cl = cand[np.arange(b)[:, None, None], col]
+    slot = rng.integers(0, k, shape)
+    copied = np.array([1, 5, 2, 3, k - 1])
+    slot = np.where(rng.random(shape) < 0.5, copied[rng.integers(0, copied.size, shape)], slot)
+    falling = b >= 4 and kb >= 3  # block 1: every ray hits in step 0
+    if falling:
+        cl[1] = cand[1, 0]
+        slot[1] = rng.integers(0, k - 1, shape[1:])
+    tri = geom[cl, slot]
+    a, bb = rng.uniform(0.1, 0.4, shape + (1,)), rng.uniform(0.1, 0.4, shape + (1,))
+    point = tri[..., 0:3] + a * tri[..., 3:6] + bb * tri[..., 6:9]
+    normal = np.cross(tri[..., 3:6], tri[..., 6:9])
+    d = normal / np.linalg.norm(normal, axis=-1, keepdims=True) + rng.normal(size=shape + (3,)) * 0.4  # not grazing
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    dist = rng.uniform(0.2, 0.5, shape)
+    o = point - d * dist[..., None]
+    tm = np.where(rng.random(shape) < 0.5, BIGF, dist + 0.1)
+    tm[1::2] = (dist + 0.1)[1::2]
+    if b >= 2:
+        tm[-1] = (dist + 0.1)[-1]
+    pad = rng.random(shape) < 0.03
+    pad[:, 7, 64:] = True
+    if giant:
+        geom[cand[0, 0], 0] = [0.0, 0.0, 50.0, 1e30, 0.0, 0.0, 0.0, 1e8, 0.0]
+        o[0, 0, :8], d[0, 0, :8] = [3e29, 3e7, 49.0], [0.0, 0.0, 1.0]
+        tm[0, 0, :8], pad[0, 0, :8] = BIGF, False
+    tm = np.where(pad, 0.0, tm).astype(np.float32)
+    o = np.where(pad[..., None], 0.0, o).astype(np.float32)
+    d = np.where(pad[..., None], np.array([1.0, 0.0, 0.0]), d).astype(np.float32)
+
+    # block-min slab distance of each candidate's box, float64 on the host: a hand-made table, not a stage under test
+    inv = 1.0 / np.where(np.abs(d) > 1e-12, d, np.where(d >= 0, 1e-12, -1e-12)).astype(np.float64)
+    entry = np.full((b, kb), np.inf, np.float32)
+    for j in range(kb):
+        t1 = (box_min[cand[:, j]][:, None, None, :] - o) * inv
+        t2 = (box_max[cand[:, j]][:, None, None, :] - o) * inv
+        tmin, tmax = np.minimum(t1, t2).max(-1), np.maximum(t1, t2).min(-1)
+        hit = (tmax >= np.maximum(tmin, 0.0)) & (tmin < tm) & (tm > 0.0)
+        entry[:, j] = np.where(hit, np.maximum(tmin, 0.0), np.inf).min(axis=(1, 2))
+    if kb >= 3:
+        entry[0, max(kb - 3, 1)] = np.inf
+    if b >= 2:
+        entry[-1, 0] = 1e30
+    if b >= 3:
+        entry[-2] = np.inf
+    if falling:
+        entry[1, 1], entry[1, 2] = 0.55, 0.0
+    f32 = lambda x: np.ascontiguousarray(x, np.float32)
+    rays = [f32(o[..., i]) for i in range(3)] + [f32(d[..., i]) for i in range(3)] + [f32(tm)]
+    return {"tri_block": geom.reshape(c, k * 9), "tri_id": ids, "box_min": box_min, "box_max": box_max,
+            "cand": cand, "entry": entry, "rays": rays}
+
+
+# (label, arguments of phase2_tie_case): equal t within and across candidates,
+# pad slots and pad rays, a block that ends at j = 0, a block of +inf entries,
+# kb = 1, one block, odd block counts, K = 8 / 16 / 64 / 128, a row longer
+# than the kernels' staged chunk of 256 entries, and a determinant beyond the
+# range of the kernels' fast reciprocal
+PHASE2_TIE_CASES = (
+    ("ties K=8 B=3 kb=6", dict(k=8, seed=0, b=3, kb=6)),
+    ("ties K=16 B=5 kb=12", dict(k=16, seed=1, b=5, kb=12)),
+    ("ties K=8 B=1 kb=1", dict(k=8, seed=2, b=1, kb=1)),
+    ("ties K=128 B=2 kb=4", dict(k=128, seed=3, b=2, kb=4)),
+    ("ties K=64 B=7 kb=9", dict(k=64, seed=4, b=7, kb=9)),
+    ("ties K=8 B=3 kb=300", dict(k=8, seed=5, b=3, kb=300)),
+    ("giant triangle K=8 B=2 kb=3", dict(k=8, seed=6, b=2, kb=3, giant=True)),
+)
+
+
+def phase2_case_tensors(case, dev):
+    """A ``phase2_tie_case`` as the wrappers take it: (cand, entry, tri_block,
+    tri_id, stream_block, the seven ray blocks)."""
+    from raytracer_tpu_torch.scene.clusters import _pack_stream_blocks
+
+    stream = _pack_stream_blocks(case["tri_block"], case["tri_id"], case["box_min"], case["box_max"])
+    to = lambda a: torch.as_tensor(a, device=dev)
+    return (to(case["cand"]), to(case["entry"]), to(case["tri_block"]), to(case["tri_id"]), to(stream),
+            tuple(to(a) for a in case["rays"]))
+
+
+def _ray_bytes(b):  # 7 inputs read once, 4 outputs written once
+    return b * pt.RB * (7 + 4) * 4
+
+
+def _grid_case(label, cand, entry, tri_block, tri_id, rays, **flags):
+    b, kb = cand.shape
+    k = tri_id.shape[1]
+    return dict(
+        kernel="phase2_grid", label=f"phase2_grid {label.split(' B=')[0]} kb={kb} B={b}", n_rays=b * pt.RB,
+        run=lambda: pt.phase2_grid(cand, entry, tri_block, tri_id, *rays),
+        plain=lambda s: pt.phase2_grid_reference(cand, entry, tri_block, tri_id, *rays, stats=s),
+        bytes_ops=lambda s: (_ray_bytes(b) + b * kb * 8 + s["touched"] * k * 10 * 4, s["visits"] * pt.RB * k * MT_OPS),
+        **flags)
+
+
+def _stream_case(label, cand, entry, stream_block, k, any_hit, rays, **flags):
+    b, kb = cand.shape
+    return dict(
+        kernel="phase2_stream", label=f"phase2_stream {'any-hit' if any_hit else 'closest'} {label.split(' B=')[0]} kb={kb} B={b}",
+        n_rays=b * pt.RB,
+        run=lambda: pt.phase2_stream(cand, entry, stream_block, *rays, k, any_hit),
+        plain=lambda s: pt.phase2_stream_reference(cand, entry, stream_block, *rays, k, any_hit, stats=s),
+        bytes_ops=lambda s: (_ray_bytes(b) + s["steps"] * 8 + s["touched"] * (10 * k + 6) * 4,
+                             s["visits"] * pt.RB * k * MT_OPS + s["steps"] * pt.RB * BOX_OPS),
+        **flags)
+
+
+def _mesh_cases(cs, o, d, label, dev, row=False, timed=True):
+    """The four launch sites on one ray set against ``cs``: the grid kernel
+    on dense (kb=48) and BFS (kb=256) candidates, the stream kernel on BFS
+    candidates, closest-hit (limit 3e38) and any-hit (limit 20, which reaches
+    the mesh from the camera)."""
+    o, d = vec(o, dev), vec(d, dev)
+    n = o.x.shape[0]
+    k = cs.tris_per_cluster
+    big = torch.full((n,), BIGF, device=dev)
+    lim = torch.full((n,), 20.0, device=dev)
+    cand, entry = pt._block_candidates(cs, o, d, big, min(48, cs.num_clusters))
+    yield _grid_case(f"dense {label}", cand.contiguous(), entry.contiguous(), cs.tri_block, cs.tri_id,
+                     _blocks(o, d, big), timed=timed, row=row)
+    cand, entry, overflow, rays = _sorted_blocks(cs, o, d, big, 256)
+    yield _grid_case(f"bfs {label}", cand, entry, cs.tri_block, cs.tri_id, rays, timed=timed,
+                     note=f"BFS overflow on {int(overflow.sum())} of {n // pt.RB} blocks")
+    for any_hit, tm in ((False, big), (True, lim)):
+        cand, entry, _, rays = _sorted_blocks(cs, o, d, tm, 256)
+        yield _stream_case(label, cand, entry, cs.stream_block, k, any_hit, rays, timed=timed, row=row and not any_hit)
+
+
+def phase2_cases(cs, dev, n_coherent=262_144, n_incoherent=65_536):
+    """Every case the two phase-2 kernels are held to, one dict each
+    (``kernel``, ``label``, ``run``, ``plain(stats)``, ``bytes_ops(stats)``,
+    ``n_rays``, ``timed``, ``row``): the path's shapes against ``cs`` (timed:
+    coherent camera rays and one incoherent window), then untimed the
+    hand-built tie and edge cases and mixed windows against K = 8 and K = 128
+    cluster sets of a 20k-triangle mesh."""
+    import bench_mesh
+    from raytracer_tpu_torch.scene.clusters import build_clusters
+
+    rng = np.random.default_rng(7)
+    yield from _mesh_cases(cs, *coherent_rays(n_coherent), "coherent", dev, row=True)
+    yield from _mesh_cases(cs, *incoherent_rays(n_incoherent, rng), "incoherent", dev)
+    for label, kwargs in PHASE2_TIE_CASES:
+        cand, entry, tri_block, tri_id, stream_block, rays = phase2_case_tensors(phase2_tie_case(**kwargs), dev)
+        yield _grid_case(label, cand, entry, tri_block, tri_id, rays, timed=False)
+        for any_hit in (False, True):
+            yield _stream_case(label, cand, entry, stream_block, kwargs["k"], any_hit, rays, timed=False)
+    verts, faces = bench_mesh.make_mesh(20_000)
+    tri = verts[faces].astype(np.float32)
+    n_small = min(n_incoherent, 8192)
+    oc, dc = coherent_rays(n_small // 2)
+    oi, di = incoherent_rays(n_small // 2, rng)
+    o, d = np.concatenate([oc, oi]), np.concatenate([dc, di])
+    for sk in (8, 128):
+        small = build_clusters(tri[:, 0], tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0], k=sk, device=dev)
+        yield from _mesh_cases(small, o, d, f"mesh20k K={sk} mixed", dev, timed=False)
+
+
+def hold_case(case, log=print):
+    """One case's kernel against its plain version: bit-equal or exit.
+    Prints the spread of steps over the ray blocks, the number that explains
+    the kernel's tail.  Returns (largest absolute difference, the plain
+    version's counts)."""
     stats = {}
-    want = plain(stats)
-    got = kernel()
-    torch.cuda.synchronize()
+    want = case["plain"](stats)
+    got = case["run"]()
+    if got[0].device.type == "cuda":
+        torch.cuda.synchronize()
     err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
-    exact = all(torch.equal(g, w) for g, w in zip(got, want))
+    label = case["label"]
     log(f"kernel vs plain [{label}]: max_abs_diff={err} tri_mismatches={int((got[1] != want[1]).sum())} "
-        f"hits={int((got[1] >= 0).sum())} of {n_rays} rays; steps={stats.get('steps', stats['visits'])} "
-        f"visits that ran the triangle loop={stats['visits']} clusters touched={stats['touched']}")
-    check(exact, f"{label}: kernel equals its plain version bit for bit", log)
-    ms = cuda_ms(kernel, reps=reps)
-    plain_ms = cuda_ms(lambda: plain(None), reps=plain_reps, warmup=1)
-    n_bytes, n_ops = bytes_ops(stats)
+        f"hits={int((got[1] >= 0).sum())} of {case['n_rays']} rays; steps={stats.get('steps', stats['visits'])} "
+        f"visits that ran the triangle loop={stats['visits']} clusters touched={stats['touched']}"
+        + (f"; {case['note']}" if case.get("note") else ""))
+    spread = lambda x: f"mean {float(x.double().mean()):.2f}, max {int(x.max())}"
+    log(f"per ray block [{label}]: " + (f"steps {spread(stats['block_steps'])}; " if "block_steps" in stats else "")
+        + f"steps that ran the triangle loop {spread(stats['block_visits'])}")
+    check(all(torch.equal(g, w) for g, w in zip(got, want)), f"{label}: kernel equals its plain version bit for bit", log)
+    return err, stats
+
+
+def time_case(case, stats, log=print, reps=20, plain_reps=5):
+    """Median times of one case's kernel and plain version beside its bound
+    from the steps the plain version counted."""
+    ms = cuda_ms(case["run"], reps=reps)
+    plain_ms = cuda_ms(lambda: case["plain"](None), reps=plain_reps, warmup=1)
+    n_bytes, n_ops = case["bytes_ops"](stats)
     b_ms, b_by = bound_ms(n_bytes, n_ops)
-    log(f"time [{label}]: kernel {ms:.4f} ms (median of {reps}), plain {plain_ms:.4f} ms (median of "
-        f"{plain_reps}), bound {b_ms:.6f} ms by {b_by} ({n_bytes:.0f} bytes, {n_ops:.0f} operations)")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+    log(f"time [{case['label']}]: kernel {ms:.4f} ms (median of {reps}), plain {plain_ms:.4f} ms (median of "
+        f"{plain_reps}), bound {b_ms:.6f} ms by {b_by} ({n_bytes:.0f} bytes, {n_ops:.0f} operations); the same "
+        f"operations without fused multiply-adds, one instruction each: {2 * n_ops / H100_F32_OPS_PER_S * 1e3:.6f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def active_clusters(log=print, k=64):
+    """Print how many ray blocks (thread-block clusters) of each phase-2
+    kernel the card holds at once with one and with two lanes a ray, as the
+    occupancy calculator says: the numbers the launch functions pick the
+    lanes per ray by."""
+    import ctypes
+
+    from raytracer_tpu_torch.ops.cuda_build import kernel_function
+
+    grid_fn = kernel_function("phase2_grid", "phase2_grid_max_active_clusters", [ctypes.c_int] * 2)
+    stream_fn = kernel_function("phase2_stream", "phase2_stream_max_active_clusters", [ctypes.c_int] * 3)
+    fits = {"phase2_grid": [grid_fn(k, s) for s in (1, 2)],
+            "phase2_stream closest": [stream_fn(k, 0, s) for s in (1, 2)],
+            "phase2_stream any-hit": [stream_fn(k, 1, s) for s in (1, 2)]}
+    log(f"cudaOccupancyMaxActiveClusters at K={k}, 8 thread blocks a cluster, with 1 / 2 lanes a ray (128 / 256 "
+        "threads a block; a negative number is a CUDA error): "
+        + ", ".join(f"{name} {a} / {b}" for name, (a, b) in fits.items()))
+    check(all(min(f) > 0 for f in fits.values()), "the card holds at least one cluster of each phase-2 kernel", log)
 
 
 def check_kernels(cs, dev, log=print, reps=20, plain_reps=20, n_coherent=262_144, n_incoherent=65_536):
-    """Each of the two phase-2 kernels against its plain version at the
-    path's shapes: bit-equal or exit.  Coherent camera rays (B = 256 blocks)
-    and one incoherent window; the grid kernel on dense candidates at kb=48
-    and on BFS candidates at kb=256, the stream kernel on BFS candidates at
-    kb=256, closest-hit and any-hit.  Returns the two kernels' table rows:
-    the coherent closest-hit case's times, the largest error of all cases."""
-    k = cs.tris_per_cluster
-    rng = np.random.default_rng(7)
-    ray_sets = {"coherent": coherent_rays(n_coherent), "incoherent": incoherent_rays(n_incoherent, rng)}
+    """Each of the two phase-2 kernels against its plain version on every
+    case of ``phase2_cases``: bit-equal or exit; the cases at the path's
+    shapes are timed and the visits give their bound.  Returns the two
+    kernels' table rows: the coherent closest-hit case's times, the largest
+    error of all cases."""
     rows = {
         "phase2_grid": {"name": "phase2_grid", "route": "cuda", "source": "raytracer_tpu_torch/csrc/phase2_grid.cu",
                         "replaces": "raytracer_tpu/ops/pallas_traverse.py:120"},
@@ -244,52 +496,14 @@ def check_kernels(cs, dev, log=print, reps=20, plain_reps=20, n_coherent=262_144
                           "replaces": "raytracer_tpu/ops/pallas_traverse.py:478"},
     }
     worst = {name: 0.0 for name in rows}
-
-    def ray_bytes(b):  # 7 inputs read once, 4 outputs written once
-        return b * pt.RB * (7 + 4) * 4
-
-    for rays_label, (o, d) in ray_sets.items():
-        o, d = vec(o, dev), vec(d, dev)
-        n = o.x.shape[0]
-        b = n // pt.RB
-        big = torch.full((n,), BIGF, device=dev)
-        lim = torch.full((n,), 20.0, device=dev)  # reaches the mesh from the camera
-
-        def grid_case(label, cand, entry, rays):
-            kb = cand.shape[1]
-            grid_bytes_ops = lambda s: (ray_bytes(b) + b * kb * 8 + s["touched"] * k * 10 * 4,
-                                        s["visits"] * pt.RB * k * MT_OPS)
-            res = _kernel_case(
-                f"phase2_grid {label} kb={kb} {rays_label} B={b}",
-                lambda: pt.phase2_grid(cand, entry, cs.tri_block, cs.tri_id, *rays),
-                lambda s: pt.phase2_grid_reference(cand, entry, cs.tri_block, cs.tri_id, *rays, stats=s),
-                n, grid_bytes_ops, log, reps, plain_reps)
-            worst["phase2_grid"] = max(worst["phase2_grid"], res["max_abs_err"])
-            return res
-
-        cand, entry = pt._block_candidates(cs, o, d, big, min(48, cs.num_clusters))
-        res = grid_case("dense", cand.contiguous(), entry.contiguous(), _blocks(o, d, big))
-        if rays_label == "coherent":
-            rows["phase2_grid"].update(res)
-
-        cand, entry, overflow, rays = _sorted_blocks(cs, o, d, big, 256)
-        log(f"BFS candidates [{rays_label}]: kb={cand.shape[1]}, overflow on {int(overflow.sum())} of {b} blocks")
-        grid_case("bfs", cand, entry, rays)
-
-        for any_hit, tm in ((False, big), (True, lim)):
-            cand, entry, _, rays = _sorted_blocks(cs, o, d, tm, 256)
-            kb = cand.shape[1]
-            stream_bytes_ops = lambda s: (ray_bytes(b) + s["steps"] * 8 + s["touched"] * (10 * k + 6) * 4,
-                                          s["visits"] * pt.RB * k * MT_OPS + s["steps"] * pt.RB * BOX_OPS)
-            res = _kernel_case(
-                f"phase2_stream {'any-hit' if any_hit else 'closest'} kb={kb} {rays_label} B={b}",
-                lambda: pt.phase2_stream(cand, entry, cs.stream_block, *rays, k, any_hit),
-                lambda s: pt.phase2_stream_reference(cand, entry, cs.stream_block, *rays, k, any_hit, stats=s),
-                n, stream_bytes_ops, log, reps, plain_reps)
-            worst["phase2_stream"] = max(worst["phase2_stream"], res["max_abs_err"])
-            if rays_label == "coherent" and not any_hit:
-                rows["phase2_stream"].update(res)
-
+    active_clusters(log, cs.tris_per_cluster)
+    for case in phase2_cases(cs, dev, n_coherent, n_incoherent):
+        err, stats = hold_case(case, log)
+        worst[case["kernel"]] = max(worst[case["kernel"]], err)
+        if case["timed"]:
+            res = time_case(case, stats, log, reps, plain_reps)
+            if case.get("row"):
+                rows[case["kernel"]].update(res)
     for name, row in rows.items():
         row["max_abs_err"] = worst[name]
         row["library_ms"] = None  # no single PyTorch call computes this function
