@@ -52,9 +52,36 @@ Phases (any failure exits non-zero before the last line):
     torch, through add_one in both launch forms and beside an empty kernel,
     mt_chunks at 64 (live, all-sentinel), 512, 1,024 and 4,096 chunks.
 
-Prints the kernel table as one JSON line before the last line, and last
+11. textures, env map and postprocess against the CPU
+    (tools/torch_check_textures.py): sample_texture_many over 2^20 lanes of
+    mixed ids (three bitmaps in the three filters, checkerboard, noise with 1
+    and 8 octaves, mix, const, INVALID_ID): texel fetches and checkerboard
+    bit-equal, the rest within 1e-6; sample_2d / pdf_2d (same texel in every
+    lane) and env_sample_direction; postprocess with each tonemapper and both
+    dithers, bloom on, to_u8 within 1.
+12. interior800k_mis: the 800k-triangle interior of tools/gen_interior.py,
+    written by tools/torch_gen_interior.py (numpy BMP writer, no PIL) and
+    loaded by the port's loader: no textures (both loaders ignore map_Kd),
+    2 area lights + background; 512^2, depth 6, MIS under wave2 (1 warm-up +
+    4 timed passes): Mray/s, rays, shadow rays, overflow = 0, wave2_mt
+    launches > 0, finite radiance, peak memory; one profiled pass.  Before
+    the render, on this scene's own cluster set: the wave2_mt kernel against
+    its twin (bit-equal, timed) on a window of the scene's camera rays and on
+    a window of bounce rays leaving their hit points, and the wave2 engine,
+    kernel path against twin path, on both windows.
+13. interior800k_tex_mis: the same meshes with the textured additions of
+    torch_gen_interior.ensure_interior_tex (textures block, normal-mapped
+    textured floor slab, textured props, a lat-long sky on the background
+    light): the same kernel, engine and render checks, plus scene.textures and
+    scene.env_dist present and Viewport.image() a (512, 512, 3) uint8 array
+    that is neither constant nor saturated; before it, a 32^2 render of the
+    small textured scene on the card against the CPU.
+
+Prints the kernel table as one JSON line before the last line (the wave2_mt
+row's top-level numbers are the 200k mesh's window; its ``by_path`` entry
+gives each driven path's launches and its own windows), and last
 {"ok": true, "device": {...}}.  Scene files are written under
-raytracer_tpu_torch/_build/.
+raytracer_tpu_torch/_build/.  No phase imports PIL.
 """
 
 from __future__ import annotations
@@ -73,7 +100,9 @@ sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 import bench_mesh  # noqa: E402  (numpy-only scene generator)
+import torch_check_textures as tctex  # noqa: E402
 import torch_check_traverse as tct  # noqa: E402
+import torch_gen_interior  # noqa: E402
 import torch_probe_launch as tpl  # noqa: E402
 from torch_check_traverse import bound_ms, coherent_rays, incoherent_rays, vec  # noqa: E402
 
@@ -85,11 +114,13 @@ from raytracer_tpu_torch.ops import pallas_traverse as pt  # noqa: E402
 from raytracer_tpu_torch.ops import traverse  # noqa: E402
 from raytracer_tpu_torch.ops import wave2_traverse as w2  # noqa: E402
 from raytracer_tpu_torch.ops.launch_probe import add_one  # noqa: E402
-from raytracer_tpu_torch.render.renderer import Viewport, ViewportParams  # noqa: E402
-from raytracer_tpu_torch.scene.camera import make_camera  # noqa: E402
+from raytracer_tpu_torch.render.renderer import Viewport, ViewportParams, pixel_grid  # noqa: E402
+from raytracer_tpu_torch.sampler.sampler import make_stream  # noqa: E402
+from raytracer_tpu_torch.scene.camera import generate_rays, make_camera  # noqa: E402
 from raytracer_tpu_torch.scene.presets import cornell_box, cornell_camera_kw  # noqa: E402
 
 bench_mesh.BENCH_DIR = os.path.join(ROOT, "raytracer_tpu_torch", "_build", "bench_scene")
+INTERIOR_DIR = os.path.join(ROOT, "raytracer_tpu_torch", "_build", "interior")
 KERNELS = ("wave2_mt", "phase2_grid", "phase2_stream", "add_one")
 
 
@@ -162,20 +193,110 @@ def profiled_pass(vp, label, top=8, named=()):
         log(f"  {dev_time(e) / 1e3:9.2f} ms  {e.count:6d} calls  {e.key[:90]}")
 
 
-def small_render_agrees(params, dev, label):
-    """A 32^2 render of the 2k-triangle mesh on the card against the CPU."""
-    small = bench_mesh.ensure_scene(2000)
+def small_render_agrees(params, dev, label, small=None, name="mesh2k"):
+    """A 32^2 render of a small scene (the 2k-triangle mesh unless ``small``
+    names another file) on the card against the CPU."""
+    small = small or bench_mesh.ensure_scene(2000)
     views = []
     for where in ("cpu", dev):
         s, m, c = load_scene(small, device=where)
         views.append(Viewport(s, m, c, ViewportParams(32, 32, seed=0), params, device=where).render(1))
     a, b = (v.radiance() for v in views)
     close = float(np.isclose(b, a, atol=1e-4, rtol=1e-3).all(-1).mean())
-    log(f"slice 32^2 mesh2k [{label}] cuda vs cpu: {close:.4f} of pixels within atol 1e-4 rtol 1e-3; "
+    log(f"slice 32^2 {name} [{label}] cuda vs cpu: {close:.4f} of pixels within atol 1e-4 rtol 1e-3; "
         f"means {a.mean():.6f} / {b.mean():.6f}; overflow {views[0].progress()['total_traversal_overflow']:.0f} / "
         f"{views[1].progress()['total_traversal_overflow']:.0f}")
     check(close >= 0.98 and abs(a.mean() - b.mean()) <= 0.01 * abs(a.mean()),
-          f"32^2 render on the card agrees with the CPU render ({label})")
+          f"32^2 render of {name} on the card agrees with the CPU render ({label})")
+    return views[1]
+
+
+def engine_agrees(cs, o, d, any_tl, dev, label):
+    """wave2_closest_hit and wave2_any_hit (rays of length ``any_tl``) on the
+    (n, 3) rays ``o``, ``d``, kernel path against twin path: t, tri ids and
+    occlusion bit-equal, no overflow.  Returns the kernel path's closest hit."""
+    ro, rd = vec(o, dev), vec(d, dev)
+    t0 = time.perf_counter()
+    k_hit = w2.wave2_closest_hit(cs, ro, rd, 3.0e38)
+    k_occ = w2.wave2_any_hit(cs, ro, rd, any_tl)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    with twin_engine():
+        t_hit = w2.wave2_closest_hit(cs, ro, rd, 3.0e38)
+        t_occ = w2.wave2_any_hit(cs, ro, rd, any_tl)
+    log(f"engine [{label}] {ro.x.shape[0]} rays: closest+any {dt * 1e3:.1f} ms, "
+        f"hit rate {float((k_hit[1] >= 0).float().mean()):.4f}, "
+        f"occluded {float(k_occ[0].float().mean()):.4f}")
+    check(torch.equal(k_hit[1], t_hit[1]) and torch.equal(k_hit[0], t_hit[0]),
+          f"engine closest-hit tri ids and t equal, kernel vs twin ({label})")
+    check(torch.equal(k_occ[0], t_occ[0]), f"engine any-hit equal, kernel vs twin ({label})")
+    check(not bool(k_hit[4].any()) and not bool(k_occ[1].any()), f"engine overflow all false ({label})")
+    return k_hit
+
+
+def interior_windows(scene, meta, cam, dev, label):
+    """The wave2_mt kernel and the wave2 engine held against the twin on the
+    interior's own cluster set, with two windows of w2.SUBWAVE rays of the
+    driven path: the camera rays of the frame at half its resolution, and
+    bounce rays that leave those rays' hit points in seeded random directions
+    (rays that hit nothing keep their origin).  Any-hit rays are as long as
+    the scene's radius.  Returns {window: check_wave2_window's numbers}."""
+    side = int(w2.SUBWAVE ** 0.5)
+    cx, cy, pixel_ids = pixel_grid(side, side, device=dev)
+    rays, _ = generate_rays(cam, cx, cy, make_stream(pixel_ids.to(torch.int64), 0, seed=0))
+    o, d = torch.stack(tuple(rays.origin), 1), torch.stack(tuple(rays.dir), 1)
+    cs, reach = scene.clusters, float(meta.scene_radius)
+    t, tri = engine_agrees(cs, o, d, reach, dev, f"{label} camera")[:2]
+    windows = {"camera": tct.check_wave2_window(cs, o, d, reach, dev, log, label=f"{label} camera window")}
+    hit = (tri >= 0)[:, None]
+    bo = torch.where(hit, o + d * (t * (1.0 - 1e-4))[:, None], o)
+    bd = np.random.default_rng(12).normal(size=(o.shape[0], 3)).astype(np.float32)
+    bd = torch.as_tensor(bd / np.linalg.norm(bd, axis=1, keepdims=True), device=dev)
+    engine_agrees(cs, bo, bd, reach, dev, f"{label} bounce")
+    windows["bounce"] = tct.check_wave2_window(cs, bo, bd, reach, dev, log, label=f"{label} bounce window")
+    return windows
+
+
+def interior_render(path, dev, smi, label, textured):
+    """Phases 12 and 13: load an interior scene, check what it holds, render
+    512^2 depth 6 MIS under wave2 (1 warm-up + 4 timed passes, one profiled)
+    with the wave2_mt launches counted; before the render, the kernel and the
+    engine against the twin on this scene's cluster set (interior_windows).
+    Returns (viewport, {"launches": ..., "windows": ...})."""
+    t0 = time.perf_counter()
+    scene, meta, cam = load_scene(path, strict=True, device=dev)
+    torch.cuda.synchronize()
+    cs = scene.clusters
+    log(f"scene: {label} loaded in {time.perf_counter() - t0:.1f} s; {scene.tris.count} tris, {cs.num_clusters} "
+        f"clusters, {cs.num_supers} supers x 8 x {cs.tris_per_cluster}; {scene.prims.count} prims, "
+        f"{scene.materials.bsdf.shape[0]} materials, light kinds {meta.light_kinds}, scene radius "
+        f"{meta.scene_radius:.2f}; textures "
+        f"{None if scene.textures is None else tuple(scene.textures.data.shape)}, env_dist "
+        f"{None if scene.env_dist is None else tuple(scene.env_dist.density.shape)}; "
+        f"device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    check(750_000 <= scene.tris.count <= 850_000, "the interior holds about 800k triangles")
+    check(meta.light_kinds == (0, 0, 1), "2 area lights and the background light")
+    if textured:
+        check(scene.textures is not None and scene.env_dist is not None,
+              "the textured interior has its atlas and its env distribution")
+        check(scene.textures.kinds_present == (0, 1, 2, 3) and scene.textures.max_octaves == 4,
+              "the atlas holds bitmaps, a checkerboard, a 4-octave noise and a mix")
+    else:
+        check(scene.textures is None and scene.env_dist is None,
+              "the interior has no textures (the OBJ maps are ignored, as in the reference loader)")
+    check(traverse.get_traversal_mode() == "auto" and not os.environ.get("RT_TRAVERSAL_MODE"),
+          "the traversal mode is the default (auto -> wave2)")
+    windows = interior_windows(scene, meta, cam, dev, label)
+    vp = Viewport(scene, meta, cam, ViewportParams(512, 512, seed=0), RenderParams(max_depth=6, mis=True), device=dev)
+    w2.mt_chunks.launches = 0
+    _, _, _, overflow, radiance = timed_render(vp, 4, smi, f"{label} [wave2]")
+    launches = w2.mt_chunks.launches
+    log(f"{label} [wave2]: wave2_mt launches {launches} in 5 passes; mean radiance {radiance.mean():.6f}")
+    check(launches > 0, f"the {label} render launched the wave2_mt kernel")
+    check(overflow == 0, f"{label}: traversal overflow is 0")
+    check(bool(np.isfinite(radiance).all()) and radiance.mean() > 0, f"{label}: radiance finite with non-zero mean")
+    profiled_pass(vp, f"{label} [wave2]", named=("wave2_mt",))
+    return vp, {"launches": launches, "windows": windows}
 
 
 def main():
@@ -210,22 +331,7 @@ def main():
     # --- 4. the wave2 engine, kernel path against twin path ----------------
     for label, (o, d) in (("coherent", coherent_rays(w2.SUBWAVE)),
                           ("incoherent", incoherent_rays(w2.SUBWAVE, rng))):
-        ro, rd = vec(o, dev), vec(d, dev)
-        t0 = time.perf_counter()
-        k_hit = w2.wave2_closest_hit(cs_set, ro, rd, 3.0e38)
-        k_occ = w2.wave2_any_hit(cs_set, ro, rd, 4.0)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        with twin_engine():
-            t_hit = w2.wave2_closest_hit(cs_set, ro, rd, 3.0e38)
-            t_occ = w2.wave2_any_hit(cs_set, ro, rd, 4.0)
-        log(f"engine [{label}] {w2.SUBWAVE} rays: closest+any {dt * 1e3:.1f} ms, "
-            f"hit rate {float((k_hit[1] >= 0).float().mean()):.4f}, "
-            f"occluded {float(k_occ[0].float().mean()):.4f}")
-        check(torch.equal(k_hit[1], t_hit[1]) and torch.equal(k_hit[0], t_hit[0]),
-              f"engine closest-hit tri ids and t equal, kernel vs twin ({label})")
-        check(torch.equal(k_occ[0], t_occ[0]), f"engine any-hit equal, kernel vs twin ({label})")
-        check(not bool(k_hit[4].any()) and not bool(k_occ[1].any()), f"engine overflow all false ({label})")
+        engine_agrees(cs_set, o, d, 4.0, dev, label)
 
     # --- 5. the wave2 slice --------------------------------------------------
     params = RenderParams(max_depth=6, mis=True)
@@ -297,10 +403,42 @@ def main():
     check(add_one.launches > 0, "the dispatch probe launched the add_one kernel")
     tpl.probe_mt_chunks(cs_set, dev, log)
 
+    # --- 11. textures, env map and postprocess against the CPU ----------------
+    tctex.check_all(dev, log)
+
+    # --- 12. the 800k-triangle interior, as the reference renders it ----------
+    t0 = time.perf_counter()
+    plain_json = torch_gen_interior.ensure_interior(INTERIOR_DIR)
+    log(f"scene: interior files under _build/interior in {time.perf_counter() - t0:.1f} s")
+    mt = rows["wave2_mt"]
+    window = {key: mt[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+    mt["by_path"] = {"mesh200k_mis": {"launches": mt["launches"], "windows": {"incoherent": window}}}
+    _, mt["by_path"]["interior800k_mis"] = interior_render(plain_json, dev, smi, "interior800k_mis", False)
+
+    # --- 13. the textured interior ---------------------------------------------
+    small = small_render_agrees(params, dev, "wave2", name="small textured scene",
+                                small=torch_gen_interior.ensure_small_textured(INTERIOR_DIR + "_small"))
+    check(small.scene.textures is not None and small.scene.env_dist is not None,
+          "the small textured scene has its atlas and its env distribution")
+    vp, mt["by_path"]["interior800k_tex_mis"] = interior_render(
+        torch_gen_interior.ensure_interior_tex(INTERIOR_DIR), dev, smi, "interior800k_tex_mis", True)
+    t0 = time.perf_counter()
+    image = vp.image()
+    log(f"interior800k_tex_mis: Viewport.image() in {(time.perf_counter() - t0) * 1e3:.1f} ms: {image.shape} "
+        f"{image.dtype}, min {image.min()}, max {image.max()}, mean {image.mean():.2f}, "
+        f"{float((image == 255).mean()):.4f} of values saturated")
+    check(image.shape == (512, 512, 3) and image.dtype == np.uint8, "image() is a (512, 512, 3) uint8 array")
+    check(image.min() < image.max() and float((image == 255).mean()) < 0.5 and float((image == 0).mean()) < 0.5,
+          "the image is neither constant nor saturated")
+    mt["max_abs_err"] = max(w["max_abs_err"] for path in mt["by_path"].values() for w in path["windows"].values())
+
+    check("PIL" not in sys.modules, "no phase imported PIL")
     for mod in ("jax", "raytracer_tpu"):
         check(not any(m == mod or m.startswith(mod + ".") for m in sys.modules), f"no {mod} module was imported")
     for row in rows.values():
         check(row["launches"] > 0, f"{row['name']}: launched {row['launches']} times on its driven path")
+    for path, entry in mt["by_path"].items():
+        check(entry["launches"] > 0, f"wave2_mt: launched {entry['launches']} times on {path}")
 
     print(f"{smi}", flush=True)
     print(json.dumps({"kernels": [rows[kernel] for kernel in KERNELS]}), flush=True)

@@ -17,6 +17,7 @@ from typing import NamedTuple
 import torch
 
 from ..math.sampling import (
+    cartesian_to_spherical_uv,
     local_to_world,
     pdf_area_to_solid_angle,
     sphere_cap_pdf,
@@ -26,8 +27,9 @@ from ..math.sampling import (
 from ..math.vec import Vec3, dot, max_component, where as vwhere
 from ..ops import bsdf as bsdf_ops
 from ..ops.intersect import BIG, Hits, PrimFrame
-from ..ops.lights import gather_light, illuminate, sphere_cone_cos_max
-from ..ops.materials import resolve_material
+from ..ops.lights import env_direction_pdf, gather_light, illuminate, sphere_cone_cos_max
+from ..ops.materials import apply_normal_map, resolve_material
+from ..ops.textures import sample_texture_many
 from ..ops.traverse import scene_hit_frame, scene_occluded, scene_traverse
 from ..sampler.sampler import SampleStream, next_1d, next_3d
 from ..scene.camera import Rays
@@ -81,6 +83,17 @@ def _light_color(scene: SceneData, li: int) -> Vec3:
     return Vec3(c.x[li], c.y[li], c.z[li])
 
 
+def _env_radiance(scene: SceneData, li: int, direction: Vec3) -> Vec3:
+    """Background color along a direction, times the light's lat-long
+    texture when the scene has textures."""
+    color = _light_color(scene, li)
+    if scene.textures is not None:
+        u, v = cartesian_to_spherical_uv(direction)
+        ids = torch.zeros_like(direction.x, dtype=torch.int32) + scene.lights.env_tex[li]
+        color = color * sample_texture_many(scene.textures, ids, u, v)
+    return color
+
+
 def _eval_global_lights(scene: SceneData, meta: SceneMeta, direction: Vec3, last_pdf, last_specular,
                         depth: int, pick_prob, use_mis_weights: bool) -> Vec3:
     """Radiance from infinite lights on ray miss, MIS-weighted (host
@@ -90,8 +103,12 @@ def _eval_global_lights(scene: SceneData, meta: SceneMeta, direction: Vec3, last
     use_mis = (~last_specular) if (use_mis_weights and depth > 0) else None
     for li, kind in enumerate(meta.light_kinds):
         if kind == LIGHT_BACKGROUND:
-            radiance = _light_color(scene, li)
-            direct_pdf_w = 1.0 / (2.0 * math.pi)
+            radiance = _env_radiance(scene, li, direction)
+            if scene.env_dist is not None:
+                # must be the pdf NEE sampled with (env importance sampling)
+                direct_pdf_w = env_direction_pdf(scene.env_dist, direction)
+            else:
+                direct_pdf_w = 1.0 / (2.0 * math.pi)
             visible = torch.ones_like(direction.x)
         elif kind == LIGHT_DIRECTIONAL and not meta.light_is_delta[li]:
             cos_angle = lights.cos_angle[li]
@@ -136,7 +153,11 @@ def _sample_lights_nee(scene: SceneData, meta: SceneMeta, params: RenderParams, 
         l = gather_light(scene.lights, light_idx)
         u1, u2, u3, stream = next_3d(stream)
         ill = illuminate(l, frame.position, frame.normal, u1, u2, u3,
-                         sphere_cone=True, scene_radius=meta.scene_radius)
+                         env=scene.env_dist, sphere_cone=True, scene_radius=meta.scene_radius)
+        radiance = ill.radiance
+        if meta.background_light_index >= 0 and scene.textures is not None:
+            bg_rad = _env_radiance(scene, meta.background_light_index, ill.dir_to_light)
+            radiance = vwhere(l.kind == LIGHT_BACKGROUND, bg_rad, radiance)
         wi_local = world_to_local(ill.dir_to_light, frame.tangent, frame.bitangent, frame.normal)
         f, bsdf_pdf = bsdf_ops.evaluate(mp, wo_local, wi_local)
         f_nonzero = max_component(f) > 0.0
@@ -152,7 +173,7 @@ def _sample_lights_nee(scene: SceneData, meta: SceneMeta, params: RenderParams, 
         mis_w = _combine_mis(ill.direct_pdf_w * pick_prob, bsdf_pdf)
         w = 1.0 if is_last else torch.where(~l.is_delta, mis_w, 1.0)
         scale = w / torch.clamp_min(pick_prob * ill.direct_pdf_w, 1e-12) * lit.to(torch.float32)
-        contrib = ill.radiance * f * scale
+        contrib = radiance * f * scale
         cap = torch.where(needed, max_t, 0.0)
 
         if defer:
@@ -208,7 +229,7 @@ def trace_radiance(scene: SceneData, meta: SceneMeta, rays: Rays, stream: Sample
         result = result + throughput * bg * (alive & miss).to(torch.float32)
 
         # --- shading frame at the hit
-        frame = scene_hit_frame(scene, hits, origin, direction)
+        frame = apply_normal_map(scene, scene_hit_frame(scene, hits, origin, direction))
 
         # --- direct light hit
         hit_light = alive & (~miss) & (frame.light_id >= 0)
@@ -236,7 +257,7 @@ def trace_radiance(scene: SceneData, meta: SceneMeta, rays: Rays, stream: Sample
 
         # --- surviving shading lanes
         survive = alive & (~miss) & (~hit_light)
-        mp = resolve_material(scene, frame.material_id)
+        mp = resolve_material(scene, frame.material_id, frame.tex_u, frame.tex_v)
         result = result + throughput * mp.emission * survive.to(torch.float32)
         wo_local = world_to_local(-direction, frame.tangent, frame.bitangent, frame.normal)
 

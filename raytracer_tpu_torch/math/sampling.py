@@ -105,6 +105,14 @@ def world_to_local(v_world: Vec3, t: Vec3, b: Vec3, n: Vec3) -> Vec3:
     return Vec3(dot(v_world, t), dot(v_world, b), dot(v_world, n))
 
 
+def cartesian_to_spherical_uv(d: Vec3):
+    """Direction -> lat-long texture coords (y up: v = theta / pi from +Y,
+    u = phi / 2 pi + 0.5)."""
+    theta = torch.arccos(torch.clamp(d.y, -1.0, 1.0))
+    phi = torch.atan2(d.z, d.x)
+    return phi / TWO_PI + 0.5, theta * INV_PI
+
+
 def spherical_quad_prepare(s: Vec3, ex: Vec3, ey: Vec3, ref: Vec3):
     """Urena spherical-rectangle frame for sampling a quad by solid angle.
     ``s``: corner, ``ex``/``ey``: full edges, ``ref``: shading point.

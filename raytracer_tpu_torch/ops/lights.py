@@ -2,9 +2,10 @@
 ``raytracer_tpu/ops/lights.py``).
 
 Every light kind's Illuminate is computed masked and selected by the
-per-light kind.  Environment-map importance sampling waits with textures
-(ROADMAP); background lights sample the hemisphere about the normal.
-Photon emission (``emit``) waits with the light tracer and VCM.
+per-light kind.  A background light with a lat-long bitmap is importance
+sampled through its 2-D distribution; without one it samples the
+hemisphere about the normal.  Photon emission (``emit``) waits with the
+light tracer and VCM.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import NamedTuple
 import torch
 
 from ..math import sampling
+from ..math.distribution import pdf_2d, sample_2d
 from ..math.vec import Vec3, dot, normalize, where as vwhere
 from ..scene.types import (
     LIGHT_AREA,
@@ -46,6 +48,7 @@ class LightSlice(NamedTuple):
     cos_angle: torch.Tensor
     is_delta: torch.Tensor
     is_finite: torch.Tensor
+    env_tex: torch.Tensor
 
 
 def gather_light(lights: Lights, idx) -> LightSlice:
@@ -63,6 +66,7 @@ def gather_light(lights: Lights, idx) -> LightSlice:
         cos_angle=lights.cos_angle[idx],
         is_delta=lights.is_delta[idx],
         is_finite=lights.is_finite[idx],
+        env_tex=lights.env_tex[idx],
     )
 
 
@@ -116,6 +120,28 @@ def _sample_shape_surface(l: LightSlice, u1, u2, u3):
     return p, n
 
 
+def env_sample_direction(env, u1, u2) -> tuple[Vec3, torch.Tensor]:
+    """Importance-sample a direction from a lat-long env-map distribution.
+    Returns (world direction, solid-angle pdf).  The (u, v) mapping matches
+    ``cartesian_to_spherical_uv``, so sampled texels line up with the
+    radiance fetches.  Jacobian: pdf_w = pdf_uv / (2 pi^2 sin(theta))."""
+    u, v, pdf_uv = sample_2d(env, u1, u2)
+    theta = v * math.pi
+    phi = (u - 0.5) * (2.0 * math.pi)
+    sin_t = torch.sin(theta)
+    d = Vec3(sin_t * torch.cos(phi), torch.cos(theta), sin_t * torch.sin(phi))
+    pdf_w = pdf_uv / torch.clamp_min(2.0 * math.pi * math.pi * sin_t, 1e-6)
+    return d, pdf_w
+
+
+def env_direction_pdf(env, d: Vec3) -> torch.Tensor:
+    """Solid-angle pdf :func:`env_sample_direction` assigns to direction
+    ``d`` (the MIS counterpart used when a BSDF-sampled ray escapes)."""
+    u, v = sampling.cartesian_to_spherical_uv(d)
+    sin_t = torch.sqrt(torch.clamp_min(1.0 - d.y * d.y, 1e-12))
+    return pdf_2d(env, u, v) / torch.clamp_min(2.0 * math.pi * math.pi * sin_t, 1e-6)
+
+
 def sphere_cone_cos_max(center: Vec3, radius, point: Vec3):
     """cos of the half-angle of the cone subtending a sphere from ``point``.
     Returns (cos_max, dist_to_center, outside)."""
@@ -129,10 +155,12 @@ def sphere_cone_cos_max(center: Vec3, radius, point: Vec3):
 
 
 def illuminate(l: LightSlice, shading_pos: Vec3, shading_frame_normal: Vec3, u1, u2, u3,
-               sphere_cone: bool = False, scene_radius: float = SCENE_RADIUS) -> Illumination:
-    """NEE sample toward one light, for every light kind.  ``sphere_cone``:
-    sphere lights sample their subtended cone and rect lights the Urena
-    spherical quad (solid-angle sampling)."""
+               env=None, sphere_cone: bool = False, scene_radius: float = SCENE_RADIUS) -> Illumination:
+    """NEE sample toward one light, for every light kind.  ``env``: optional
+    Distribution2D over the background light's lat-long env map; background
+    lanes then importance-sample it instead of the uniform hemisphere.
+    ``sphere_cone``: sphere lights sample their subtended cone and rect
+    lights the Urena spherical quad (solid-angle sampling)."""
     one = torch.ones_like(u1)
 
     # point / spot
@@ -197,11 +225,15 @@ def illuminate(l: LightSlice, shading_pos: Vec3, shading_frame_normal: Vec3, u1,
         pdf_area = torch.where(is_rect, pdf_q, pdf_area)
         area_ok = torch.where(is_rect, cos_at_q > 1e-7, area_ok)
 
-    # background: uniform hemisphere about the shading normal
-    h_local = sampling.sample_hemisphere(u1, u2)
-    t, b = sampling.build_onb(shading_frame_normal)
-    dir_bg = sampling.local_to_world(h_local, t, b, shading_frame_normal)
-    pdf_bg = torch.full_like(u1, sampling.uniform_hemisphere_pdf())
+    # background: the env-map distribution when there is one, else the
+    # uniform hemisphere about the shading normal
+    if env is not None:
+        dir_bg, pdf_bg = env_sample_direction(env, u1, u2)
+    else:
+        h_local = sampling.sample_hemisphere(u1, u2)
+        t, b = sampling.build_onb(shading_frame_normal)
+        dir_bg = sampling.local_to_world(h_local, t, b, shading_frame_normal)
+        pdf_bg = torch.full_like(u1, sampling.uniform_hemisphere_pdf())
 
     # directional: cone about local -Z
     cone = sampling.sample_cone(l.cos_angle, u1, u2)

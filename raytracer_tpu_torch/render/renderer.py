@@ -6,8 +6,9 @@ One render pass runs over the full pixel wavefront:
 
 Every sample is a pure function of (pixel id, pass, dim, seed), so renders
 are reproducible and match the JAX package's sample streams bit for bit.
-``Viewport.image()``, postprocess, checkpointing and adaptive rendering
-wait (ROADMAP queue 1, item 17).
+``Viewport.image()`` runs the postprocess pipeline on the device and
+returns the uint8 sRGB image on the host.  Checkpointing and adaptive
+rendering wait (ROADMAP queue 1, item 17).
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from ..sampler.sampler import (
 from ..scene.camera import generate_rays
 from ..scene.types import Camera, SceneData, SceneMeta
 from .film import Film, accumulate_frame, average_radiance, make_film
+from .postprocess import PostprocessParams, postprocess, to_u8
 
 
 @dataclass(frozen=True)
@@ -101,12 +103,14 @@ class Viewport:
 
         vp = Viewport(scene, meta, cam, ViewportParams(512, 512), device="cuda")
         vp.render(n_passes=16)
+        img = vp.image()            # (H, W, 3) uint8 postprocessed sRGB
         hdr = vp.radiance()         # (H, W, 3) float32 mean radiance
     """
 
     def __init__(self, scene: SceneData, meta: SceneMeta, cam: Camera,
                  vp_params: ViewportParams = ViewportParams(),
-                 render_params: RenderParams = RenderParams(), *, device):
+                 render_params: RenderParams = RenderParams(),
+                 post_params: PostprocessParams = PostprocessParams(), *, device):
         self.device = torch.device(device)
         on = lambda t: t.device.type == self.device.type
         if not (on(scene.prims.kind) and on(cam.tan_half_fov)):
@@ -116,6 +120,7 @@ class Viewport:
         self.cam = cam
         self.vp_params = vp_params
         self.render_params = render_params
+        self.post_params = post_params
         self.reset()
 
     def reset(self):
@@ -144,6 +149,10 @@ class Viewport:
 
     def radiance(self) -> np.ndarray:
         return average_radiance(self.film).cpu().numpy()
+
+    def image(self) -> np.ndarray:
+        srgb = postprocess(average_radiance(self.film), self.post_params, dither_seed=self.film.num_passes)
+        return to_u8(srgb).cpu().numpy()
 
     def progress(self) -> dict:
         return {

@@ -1,9 +1,8 @@
 """Host-side scene construction: python objects -> SoA tensors on a device
 (port of ``raytracer_tpu/scene/build.py``).
 
-``SceneBuilder.build(device)`` takes the device explicitly.  Instances,
-decals, textures and environment maps wait (ROADMAP); ``build`` raises if
-a scene uses any of them rather than rendering it wrongly.
+``SceneBuilder.build(device)`` takes the device explicitly.  Instances and
+decals wait (ROADMAP).
 """
 
 from __future__ import annotations
@@ -29,6 +28,13 @@ class MaterialDesc:
     metalness: float = 0.0
     ior: float = 1.5
     k: float = 4.0
+    base_color_tex: int = T.INVALID_ID
+    emission_tex: int = T.INVALID_ID
+    roughness_tex: int = T.INVALID_ID
+    metalness_tex: int = T.INVALID_ID
+    normal_tex: int = T.INVALID_ID
+    mask_tex: int = T.INVALID_ID
+    normal_strength: float = 1.0
 
 
 @dataclass
@@ -49,6 +55,7 @@ class LightDesc:
     shape_kind: int = T.SHAPE_RECT
     shape_param: tuple = (0.5, 0.5, 0.0)
     angle_rad: float = 0.0  # spot / directional cone half-angle
+    env_tex: int = T.INVALID_ID
 
     def surface_area(self) -> float:
         sx, sy, sz = self.shape_param
@@ -107,6 +114,7 @@ class SceneBuilder:
         self._tri_n = []  # (n,3,3) vertex normals
         self._tri_uv = []  # (n,3,2)
         self._tri_mat = []  # (n,)
+        self.textures = None  # a TextureAtlas on the build device, set by the loader
 
     # --- materials -------------------------------------------------------------
     def add_material(self, desc: MaterialDesc) -> int:
@@ -182,6 +190,13 @@ class SceneBuilder:
             metalness=_f32([m.metalness for m in mats], device),
             ior=_f32([m.ior for m in mats], device),
             k=_f32([m.k for m in mats], device),
+            base_color_tex=_i32([m.base_color_tex for m in mats], device),
+            emission_tex=_i32([m.emission_tex for m in mats], device),
+            roughness_tex=_i32([m.roughness_tex for m in mats], device),
+            metalness_tex=_i32([m.metalness_tex for m in mats], device),
+            normal_tex=_i32([m.normal_tex for m in mats], device),
+            mask_tex=_i32([m.mask_tex for m in mats], device),
+            normal_strength=_f32([m.normal_strength for m in mats], device),
         )
 
         prim_list = self.prims
@@ -200,8 +215,30 @@ class SceneBuilder:
 
         tris, clusters, tri_verts = self._build_tris(device)
         scene = T.SceneData(prims=prims, tris=tris, materials=materials,
-                            lights=self._build_lights(device), clusters=clusters)
+                            lights=self._build_lights(device), clusters=clusters,
+                            textures=self.textures, env_dist=self._build_env_dist(device))
         return scene, self._build_meta(prim_list, tri_verts)
+
+    def _build_env_dist(self, device):
+        """2-D luminance x sin(theta) distribution over the background
+        light's lat-long bitmap, for NEE importance sampling."""
+        if self.textures is None:
+            return None
+        bg = next((l for l in self.lights if l.kind == T.LIGHT_BACKGROUND), None)
+        if bg is None or bg.env_tex < 0:
+            return None
+        atlas = self.textures
+        if int(atlas.kind[bg.env_tex]) != T.TEX_BITMAP:
+            return None
+        y0 = int(atlas.y0[bg.env_tex])
+        h = int(atlas.height[bg.env_tex])
+        w = int(atlas.width[bg.env_tex])
+        img = atlas.data[y0:y0 + h, :w, :].cpu().numpy()
+        lum = img @ np.array([0.2126, 0.7152, 0.0722], np.float64)
+        theta = (np.arange(h, dtype=np.float64) + 0.5) / h * np.pi
+        from ..math.distribution import make_distribution_2d
+
+        return make_distribution_2d(lum * np.sin(theta)[:, None], device=device)
 
     def _build_tris(self, device):
         if not self._tri_v:
@@ -283,4 +320,5 @@ class SceneBuilder:
             cos_angle=_f32([_math.cos(l.angle_rad) for l in ls], device),
             is_delta=torch.as_tensor([f[0] for f in flags], device=device),
             is_finite=torch.as_tensor([f[1] for f in flags], device=device),
+            env_tex=_i32([l.env_tex for l in ls], device),
         )

@@ -3,9 +3,10 @@
 ``scene_from_numpy`` takes the reference's ``SceneData`` / ``ClusterSet``
 / ``Camera`` / ``SceneMeta`` (or any NamedTuple of them) whose array leaves
 were mapped to numpy, and builds the port's type of the same name from the
-fields the port keeps.  Fields the port does not hold yet (textures,
-decals, instances, environment maps) must be empty: a scene that uses them
-raises instead of losing them.  This lets a test run one module of each
+fields the port keeps (the texture atlas and the environment map's
+distribution included).  Fields the port does not hold yet (decals,
+instances) must be empty: a scene that uses them raises instead of losing
+them.  This lets a test run one module of each
 package on bit-identical data.
 """
 
@@ -16,18 +17,20 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..math.distribution import Distribution, Distribution2D
 from ..math.vec import Vec3
+from ..ops.textures import atlas_static
 from . import types as T
 from .clusters import ClusterSet
 
 _PORT_TYPES = {
     cls.__name__: cls
     for cls in (T.SceneData, T.Primitives, T.Triangles, T.Materials, T.Lights,
-                T.Rot3, T.Camera, T.SceneMeta, Vec3, ClusterSet)
+                T.Rot3, T.Camera, T.SceneMeta, T.TextureAtlas, Distribution, Distribution2D,
+                Vec3, ClusterSet)
 }
 # reference fields the port does not hold yet: they must be empty / off
-_WAITING = ("textures", "env_dist", "decals", "instances", "mesh_geoms",
-            "enable_motion_blur", "bokeh_shape")
+_WAITING = ("decals", "instances", "mesh_geoms", "enable_motion_blur", "bokeh_shape")
 
 
 def _field_names(cls) -> tuple:
@@ -55,4 +58,8 @@ def scene_from_numpy(obj, device):
             )
     if cls is T.SceneMeta:
         return T.SceneMeta(**{f: getattr(obj, f) for f in _field_names(cls)})
+    if cls is T.TextureAtlas:
+        # the reference's table has the arrays only; its static facts are read off them
+        arrays = {f: scene_from_numpy(getattr(obj, f), device) for f in type(obj)._fields}
+        return T.TextureAtlas(**arrays, **atlas_static(np.asarray(obj.kind), np.asarray(obj.octaves)))
     return cls(**{f: scene_from_numpy(getattr(obj, f), device) for f in _field_names(cls)})

@@ -2,9 +2,10 @@
 tensors (port of ``raytracer_tpu/scene/types.py``).
 
 Field names follow the reference so ``scene/convert.py`` can carry a JAX
-scene across by name.  This slice keeps the fields the MIS path tracer
-reads on analytic prims and baked triangle meshes; textures, decals,
-instances, motion blur and spectral dispersion wait (ROADMAP).
+scene across by name.  The port keeps the fields the MIS path tracer
+reads on analytic prims and baked triangle meshes, with textures and the
+environment-map distribution; decals, instances, motion blur and spectral
+dispersion wait (ROADMAP).
 """
 
 from __future__ import annotations
@@ -123,6 +124,14 @@ class Materials(NamedTuple):
     metalness: torch.Tensor
     ior: torch.Tensor
     k: torch.Tensor  # extinction for conductors
+    # texture ids into the atlas; INVALID_ID = constant parameter
+    base_color_tex: torch.Tensor  # (M,) int32
+    emission_tex: torch.Tensor
+    roughness_tex: torch.Tensor
+    metalness_tex: torch.Tensor
+    normal_tex: torch.Tensor
+    mask_tex: torch.Tensor  # stored for the schema; nothing reads it (as in the reference)
+    normal_strength: torch.Tensor  # (M,)
 
 
 class Lights(NamedTuple):
@@ -138,6 +147,7 @@ class Lights(NamedTuple):
     cos_angle: torch.Tensor  # spot/directional cone cosine
     is_delta: torch.Tensor  # bool
     is_finite: torch.Tensor  # bool
+    env_tex: torch.Tensor  # (L,) int32 texture id for background lights
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,6 +170,39 @@ class Camera:
     enable_distortion: bool = False
 
 
+# texture kinds: bitmap / checkerboard / simplex-noise / mix(A, B, weight) / constant
+TEX_BITMAP = 0
+TEX_CHECKERBOARD = 1
+TEX_NOISE = 2
+TEX_MIX = 3
+TEX_CONST = 4
+
+
+class TextureAtlas(NamedTuple):
+    """The whole texture system as one SoA table (K textures).  Bitmaps are
+    packed row-wise into ONE (rows, W_atlas, 3) tensor so a per-ray fetch is
+    one 2-D gather whichever texture each ray addresses; procedural kinds
+    are evaluated inline, selected by the per-texture integer ``kind``."""
+
+    data: torch.Tensor  # (rows, W, 3) f32 linear, packed bitmap storage
+    y0: torch.Tensor  # (K,) int32 first row of texture k (bitmaps)
+    height: torch.Tensor  # (K,) int32
+    width: torch.Tensor  # (K,) int32
+    filter_mode: torch.Tensor  # (K,) int32: 0 nearest, 1 bilinear, 2 bilinear-smoothstep
+    kind: torch.Tensor  # (K,) int32: TEX_*
+    color_a: Vec3  # (K,) checkerboard/noise color A, const color
+    color_b: Vec3  # (K,) color B
+    octaves: torch.Tensor  # (K,) int32 noise FBM octaves
+    sub_a: torch.Tensor  # (K,) int32 mix input A texture id
+    sub_b: torch.Tensor  # (K,) int32 mix input B texture id
+    sub_w: torch.Tensor  # (K,) int32 mix weight texture id
+    # static facts of the table, known on the host when it is built: which
+    # kinds occur and the most octaves any noise asks for.  The sampler
+    # leaves out the work no row can select; the defaults leave nothing out.
+    kinds_present: tuple = (TEX_BITMAP, TEX_CHECKERBOARD, TEX_NOISE, TEX_MIX, TEX_CONST)
+    max_octaves: int = 8
+
+
 class SceneData(NamedTuple):
     """Complete device-side scene."""
 
@@ -168,6 +211,10 @@ class SceneData(NamedTuple):
     materials: Materials
     lights: Lights
     clusters: object = None  # Optional[ClusterSet] (wave2 mesh traversal)
+    textures: Optional[TextureAtlas] = None
+    # Optional[Distribution2D] over the background light's lat-long bitmap
+    # (luminance x sin(theta)): NEE importance-samples it
+    env_dist: object = None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -31,7 +31,9 @@ def test_port_has_the_slice_modules():
               "ops.wave2_traverse", "ops.traverse", "ops.bsdf", "ops.materials", "ops.lights",
               "io.obj", "native", "ops.cluster_traverse", "ops.pallas_traverse", "ops.bvh_traverse",
               "ops.launch_probe", "ops.cuda_build",
-              "integrators.path_tracer", "render.film", "render.renderer"):
+              "integrators.path_tracer", "render.film", "render.renderer",
+              "color.colorhelpers", "ops.textures", "math.distribution", "io.exr", "io.bmp",
+              "render.postprocess"):
         assert f"raytracer_tpu_torch.{m}" in mods, m
 
 

@@ -112,18 +112,291 @@ def test_load_bench_scene_bit_equal(bench_dir, n_tris):
 
 
 def test_loader_refuses_what_waits(tmp_path):
+    """Instancing and csg still raise; a texture key no longer does: a file
+    that is not there becomes a white placeholder with a warning, or raises
+    under ``strict``."""
     import json
 
     p = tmp_path / "tex.json"
     p.write_text(json.dumps({"materials": [{"name": "m", "baseColorTexture": "a.bmp"}]}))
-    with pytest.raises(SceneLoadError, match="ROADMAP"):
-        load_scene(str(p), device="cpu")
+    with pytest.warns(UserWarning, match="1 texture file"):
+        scene, _, _ = load_scene(str(p), device="cpu")
+    assert scene.textures is not None and scene.textures.kind.tolist() == [4]  # one white constant
+    assert scene.materials.base_color_tex.tolist() == [0]
+    with pytest.raises(SceneLoadError, match="texture not found"):
+        load_scene(str(p), strict=True, device="cpu")
     obj = tmp_path / "tri.obj"
     obj.write_text("v 0 0 0\nv 1 0 0\nv 0 1 0\nf 1 2 3\n")
     p.write_text(json.dumps({"objects": [{"type": "mesh", "path": str(obj)},
                                          {"type": "mesh", "path": str(obj)}]}))
     with pytest.raises(SceneLoadError, match="instancing"):
         load_scene(str(p), device="cpu")
+    p.write_text(json.dumps({"objects": [{"type": "csg"}]}))
+    with pytest.raises(SceneLoadError, match="csg"):
+        load_scene(str(p), device="cpu")
+
+
+def _write_test_bitmaps(tmp_path):
+    """A 6x5 BMP (its 18-byte rows are padded to 20), a 7x3 BMP and an 8x4
+    lat-long EXR, from a seed."""
+    from PIL import Image
+
+    from raytracer_tpu.io.exr import write_exr
+
+    rng = np.random.default_rng(21)
+    for name, (h, w) in (("a.bmp", (5, 6)), ("b.bmp", (3, 7))):
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8), "RGB").save(tmp_path / name)
+    env = rng.random((4, 8, 3)).astype(np.float32) * 3.0
+    write_exr(str(tmp_path / "env.exr"), env, half=False)
+    return env
+
+
+def test_read_bmp_equals_pil(tmp_path):
+    """The port's numpy BMP reader against PIL: equal uint8 arrays, for the
+    usual bottom-up file and for a top-down one (negative height)."""
+    import struct
+
+    from PIL import Image
+
+    from raytracer_tpu_torch.io.bmp import read_bmp, write_bmp
+
+    _write_test_bitmaps(tmp_path)
+    for name in ("a.bmp", "b.bmp"):
+        path = tmp_path / name
+        want = np.asarray(Image.open(path).convert("RGB"))
+        assert np.array_equal(read_bmp(str(path)), want), name
+        raw = bytearray(path.read_bytes())
+        (offset,) = struct.unpack_from("<I", raw, 10)
+        w, h = struct.unpack_from("<ii", raw, 18)
+        stride = (w * 3 + 3) & ~3
+        rows = [bytes(raw[offset + i * stride: offset + (i + 1) * stride]) for i in range(h)]
+        raw[offset:offset + h * stride] = b"".join(rows[::-1])
+        struct.pack_into("<i", raw, 22, -h)
+        top_down = tmp_path / ("td_" + name)
+        top_down.write_bytes(bytes(raw))
+        assert np.array_equal(np.asarray(Image.open(top_down).convert("RGB")), want)
+        assert np.array_equal(read_bmp(str(top_down)), want), name
+        write_bmp(str(tmp_path / ("np_" + name)), want)
+        assert np.array_equal(np.asarray(Image.open(tmp_path / ("np_" + name)).convert("RGB")), want)
+        assert np.array_equal(read_bmp(str(tmp_path / ("np_" + name))), want)
+    (tmp_path / "not.bmp").write_bytes(b"PNG" + bytes(60))
+    with pytest.raises(ValueError, match="not a BMP"):
+        read_bmp(str(tmp_path / "not.bmp"))
+    with pytest.raises(ValueError, match="uint8"):
+        write_bmp(str(tmp_path / "f.bmp"), np.zeros((2, 2, 3), np.float32))
+
+
+def test_exr_codec_is_the_reference_copy(tmp_path):
+    from raytracer_tpu.io import exr as ref_exr
+    from raytracer_tpu_torch.io import exr
+
+    import ast
+
+    def code(path):  # the module without its docstring
+        with open(path) as f:
+            tree = ast.parse(f.read())
+        return ast.dump(ast.Module(tree.body[1:], []))
+
+    assert code(ref_exr.__file__) == code(exr.__file__)
+    img = np.random.default_rng(2).random((5, 9, 3)).astype(np.float32)
+    for half in (False, True):
+        exr.write_exr(str(tmp_path / "x.exr"), img, half=half)
+        assert np.array_equal(exr.read_exr(str(tmp_path / "x.exr")), ref_exr.read_exr(str(tmp_path / "x.exr")))
+    assert np.array_equal(exr.read_exr(str(tmp_path / "x.exr")), img.astype(np.float16).astype(np.float32))
+
+
+def _textured_scene_json(tmp_path):
+    import json
+
+    _write_test_bitmaps(tmp_path)
+    doc = {
+        "textures": [
+            {"name": "blend", "type": "mix", "textureA": "tiles", "textureB": "speckle", "weight": "board"},
+            {"name": "tiles", "type": "bitmap", "path": "a.bmp"},
+            {"name": "board", "type": "checkerboard", "colorA": [1, 1, 1], "colorB": [0.1, 0.1, 0.1]},
+            {"name": "speckle", "type": "noise", "colorA": [0.9, 0.8, 0.7], "colorB": [0.2, 0.2, 0.3], "octaves": 3},
+            {"name": "sky", "type": "bitmap", "path": "env.exr"},
+            {"name": "gone", "type": "bitmap", "path": "nowhere.bmp"},
+        ],
+        "materials": [
+            {"name": "floor", "bsdf": "roughPlastic", "baseColor": [0.9, 0.9, 0.9], "baseColorTexture": "blend",
+             "roughness": 0.4, "roughnessTexture": "board", "normalMap": "b.bmp", "normalMapStrength": 0.6},
+            {"name": "ball", "bsdf": "roughMetal", "baseColorTexture": "tiles", "metalnessTexture": "speckle",
+             "emissionTexture": "gone", "maskMap": "nowhere2.bmp"},
+        ],
+        "objects": [
+            {"type": "plane", "size": [4, 4], "textureScale": [0.5, 0.25], "material": "floor",
+             "transform": {"orientation": [-90, 0, 0]}},
+            {"type": "sphere", "radius": 0.7, "material": "ball", "transform": {"translation": [0, 0.7, 0]}},
+        ],
+        "lights": [
+            {"type": "area", "color": [6, 6, 6], "texture": "board",
+             "transform": {"translation": [0, 3, 0], "orientation": [90, 0, 0]},
+             "shape": {"type": "rect", "size": [0.5, 0.5]}},
+            {"type": "background", "color": [0.8, 0.9, 1.0], "texture": "sky"},
+        ],
+        "camera": {"transform": {"translation": [0, 1.5, -4], "orientation": [10, 0, 0]}, "fieldOfView": 50.0},
+    }
+    path = tmp_path / "textured.json"
+    path.write_text(json.dumps(doc))
+    return str(path)
+
+
+def assert_same_scene(scene, ref_scene):
+    """Bit equality of everything but the atlas pixels, which come from an
+    sRGB decode that differs by at most one ulp between the packages
+    (tests/test_torch_postprocess.py); EXR pixels are not decoded and so the
+    env distribution is bit-equal too."""
+    want = to_port(ref_scene)
+    assert_same(scene._replace(textures=None), want._replace(textures=None))
+    assert_same(scene.textures._replace(data=None), want.textures._replace(data=None), "textures")
+    np.testing.assert_allclose(scene.textures.data.numpy(), want.textures.data.numpy(), rtol=0, atol=6e-8)
+
+
+def test_load_textured_scene_matches_reference(tmp_path):
+    """A JSON with a ``textures`` block (a mix declared before its parts, a
+    BMP, an EXR, a missing file), materials naming declared textures and bare
+    paths, an area and a background light with a ``texture``."""
+    path = _textured_scene_json(tmp_path)
+    with pytest.warns(UserWarning, match="2 texture file"):
+        ref_scene, ref_meta, ref_cam = ref_load_scene(path)
+    with pytest.warns(UserWarning, match="2 texture file"):
+        scene, meta, cam = load_scene(path, device="cpu")
+    assert_same_scene(scene, ref_scene)
+    assert meta == to_port(ref_meta)
+    assert_same(cam, to_port(ref_cam))
+    assert scene.env_dist is not None and scene.env_dist.density.shape == (4, 8)
+    assert scene.textures.kinds_present == (0, 1, 2, 3, 4) and scene.textures.max_octaves == 3
+    # the BMP went through numpy on this side and PIL on the other: the same texels
+    y0, h, w = (int(getattr(scene.textures, f)[1]) for f in ("y0", "height", "width"))
+    assert (h, w) == (5, 6)
+    from raytracer_tpu_torch.io.bmp import read_bmp, write_bmp
+
+    decoded = scene.textures.data[y0:y0 + h, :w]
+    first_row = torch.as_tensor(read_bmp(str(tmp_path / "a.bmp"))[-1].astype(np.float32) / 255.0)
+    assert torch.all((decoded[0] > 0.5) == (first_row > 0.7354))  # row 0 is the image's bottom row (raw BMP order)
+    with pytest.raises(SceneLoadError, match="texture not found"):
+        load_scene(path, strict=True, device="cpu")
+
+
+def test_other_bitmap_formats_go_through_pil_lazily(tmp_path, monkeypatch):
+    import json
+    import sys
+
+    from PIL import Image
+
+    Image.fromarray(np.full((2, 2, 3), 128, np.uint8), "RGB").save(tmp_path / "t.png")
+    p = tmp_path / "png.json"
+    p.write_text(json.dumps({"materials": [{"name": "m", "baseColorTexture": "t.png"}]}))
+    scene, _, _ = load_scene(str(p), strict=True, device="cpu")
+    ref_scene, _, _ = ref_load_scene(str(p), strict=True)
+    assert_same_scene(scene, ref_scene)
+    monkeypatch.setitem(sys.modules, "PIL", None)  # a host without PIL
+    for strict in (True, False):  # only a file that is not there becomes a placeholder
+        with pytest.raises(SceneLoadError, match="needs PIL"):
+            load_scene(str(p), strict=strict, device="cpu")
+
+
+@pytest.mark.parametrize("strict", [True, False])
+def test_a_corrupt_bmp_is_an_error_and_not_a_placeholder(tmp_path, strict):
+    """A 24-bit BMP cut short raises with the reader's message, also on a host
+    without PIL; an 8-bit BMP (another variant) still goes to PIL."""
+    import json
+
+    from PIL import Image
+
+    from raytracer_tpu_torch.io.bmp import write_bmp
+
+    write_bmp(str(tmp_path / "t.bmp"), np.full((4, 4, 3), 128, np.uint8))
+    whole = (tmp_path / "t.bmp").read_bytes()
+    p = tmp_path / "bmp.json"
+    p.write_text(json.dumps({"materials": [{"name": "m", "baseColorTexture": "t.bmp"}]}))
+    for cut, message in ((len(whole) - 5, "pixel array cut short"), (30, "header cut short")):
+        (tmp_path / "t.bmp").write_bytes(whole[:cut])
+        with pytest.raises(SceneLoadError, match=message):
+            load_scene(str(p), strict=strict, device="cpu")
+    Image.fromarray(np.full((4, 4), 77, np.uint8), "L").save(tmp_path / "t.bmp")  # an 8-bit palette file
+    scene, _, _ = load_scene(str(p), strict=strict, device="cpu")
+    ref_scene, _, _ = ref_load_scene(str(p), strict=strict)
+    assert_same_scene(scene, ref_scene)
+
+
+def test_obj_texture_maps_are_ignored_as_in_the_reference(tmp_path):
+    """The same multi-mesh .obj + .mtl with ``map_Kd`` / ``map_bump`` /
+    ``map_d`` lines through both loaders: the material tables (and the whole
+    scene) are equal, and neither builds an atlas."""
+    import json
+
+    (tmp_path / "m.mtl").write_text(
+        "newmtl stone\nKd 0.8 0.7 0.6\nmap_Kd stone.bmp\nmap_bump stone_n.bmp\n"
+        "newmtl glow\nKd 0.1 0.2 0.3\nKe 2 2 1\nmap_d mask.bmp\nNi 1.33\n"
+        "newmtl plain\nKd 0.5 0.5 0.5\n")
+    (tmp_path / "a.obj").write_text(
+        "mtllib m.mtl\nv 0 0 0\nv 1 0 0\nv 0 1 0\nv 1 1 0\nvt 0 0\nvt 1 0\nvt 0 1\nvt 1 1\n"
+        "usemtl stone\nf 1/1 2/2 3/3\nusemtl glow\nf 2/2 4/4 3/3\n")
+    (tmp_path / "b.obj").write_text(
+        "mtllib m.mtl\nv 0 0 1\nv 1 0 1\nv 0 1 1\nusemtl plain\nf 1 2 3\nusemtl stone\nf 3 2 1\n")
+    p = tmp_path / "two.json"
+    p.write_text(json.dumps({
+        "materials": [{"name": "base", "bsdf": "diffuse"}],
+        "objects": [{"type": "mesh", "path": "a.obj"},
+                    {"type": "mesh", "path": "b.obj", "transform": {"translation": [0, 0, 2]}}],
+        "lights": [{"type": "background", "color": [1, 1, 1]}]}))
+    ref_scene, ref_meta, _ = ref_load_scene(str(p))
+    scene, meta, _ = load_scene(str(p), device="cpu")
+    assert ref_scene.textures is None and scene.textures is None and scene.env_dist is None
+    assert_same(scene.materials, to_port(ref_scene.materials), "materials")
+    assert_same(scene, to_port(ref_scene))
+    assert meta == to_port(ref_meta)
+    assert scene.tris.count == 4 and (scene.materials.base_color_tex == -1).all()
+
+
+def test_interior_generator_writes_the_reference_bitmaps_without_pil(tmp_path, monkeypatch):
+    """``tools/torch_gen_interior.py`` runs ``tools/gen_interior.py`` with a
+    numpy BMP writer in place of its PIL one: the three generated bitmaps
+    decode to the same pixels either way."""
+    from PIL import Image
+
+    import gen_interior
+    import torch_gen_interior
+
+    pil_writer = gen_interior._write_bmp
+    monkeypatch.setattr(gen_interior, "BENCH_DIR", str(tmp_path / "pil"))
+    want = gen_interior._textures(np.random.default_rng(gen_interior.SEED))
+    monkeypatch.setattr(gen_interior, "_write_bmp", pil_writer)  # restored after the test
+    torch_gen_interior._use(str(tmp_path / "np"))
+    got = gen_interior._textures(np.random.default_rng(gen_interior.SEED))
+    assert sorted(want) == sorted(got) == ["floor", "marble", "plaster"]
+    for k in want:
+        assert got[k].startswith(str(tmp_path / "np"))
+        assert np.array_equal(np.asarray(Image.open(want[k]).convert("RGB")),
+                              np.asarray(Image.open(got[k]).convert("RGB"))), k
+
+
+def test_small_textured_scene_loads_like_the_reference(tmp_path, monkeypatch):
+    """The textured layout of ``torch_gen_interior`` (what the 800k-triangle
+    textured interior adds, over two small meshes) through both loaders."""
+    import gen_interior
+    import torch_gen_interior
+
+    monkeypatch.setattr(gen_interior, "BENCH_DIR", gen_interior.BENCH_DIR)  # restored after the test
+    monkeypatch.setattr(gen_interior, "_write_bmp", gen_interior._write_bmp)
+    path = torch_gen_interior.ensure_small_textured(str(tmp_path))
+    assert torch_gen_interior.ensure_small_textured(str(tmp_path)) == path  # idempotent
+    ref_scene, ref_meta, ref_cam = ref_load_scene(path, strict=True)
+    scene, meta, cam = load_scene(path, strict=True, device="cpu")
+    assert_same_scene(scene, ref_scene)
+    assert meta == to_port(ref_meta)
+    assert_same(cam, to_port(ref_cam))
+    assert scene.tris.count == 450 + 640 and scene.prims.count == 4
+    assert scene.textures.kinds_present == (0, 1, 2, 3) and scene.textures.max_octaves == 4
+    assert scene.env_dist.density.shape == (64, 128)
+    assert (scene.materials.normal_tex >= 0).sum() == 1 and meta.light_kinds == (0, 1)
+    # the normal map decodes to unit vectors that point out of the surface
+    n = torch_gen_interior.normal_map() * 2.0 - 1.0
+    assert np.allclose(np.linalg.norm(n, axis=-1), 1.0) and (n[..., 2] > 0.5).all()
+    sky = torch_gen_interior.sky_map()
+    assert sky.dtype == np.float32 and sky.max() > 20.0 and sky[-1].max() < 0.2  # a sun above a dim ground
 
 
 def test_convert_refuses_waiting_fields():

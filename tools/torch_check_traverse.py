@@ -542,6 +542,34 @@ def _mt_case(label, args, any_hit, log):
     return err, stats
 
 
+def check_wave2_window(cs, o, d, any_tl, dev, log=print, label="window", reps=20, plain_reps=5):
+    """The wave2 Möller-Trumbore kernel against its plain twin on one real
+    traversal window of ``cs``: the (n, 3) rays ``o``, ``d`` as closest-hit
+    rays and as any-hit rays of length ``any_tl``; bit-equal or exit, both
+    timed.  Returns the closest-hit window's ``ms``, ``plain_ms``,
+    ``bound_ms`` and ``bound_by``, the chunk count and the larger
+    ``max_abs_err`` of the two."""
+    k = cs.tris_per_cluster
+    out = {"max_abs_err": 0.0}
+    for any_hit, tl_value in ((False, BIGF), (True, any_tl)):
+        args = _window_chunks(cs, o, d, tl_value, dev)
+        kind = "any-hit" if any_hit else "closest"
+        err, stats = _mt_case(f"{label} K={k} {kind}", args, any_hit, log)
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        ms = cuda_ms(lambda: w2.mt_chunks(*args, any_hit=any_hit), reps=reps)
+        plain_ms = cuda_ms(lambda: w2.mt_chunks_reference(*args, any_hit=any_hit), reps=plain_reps, warmup=1)
+        # each chunk's 1,024 pairs: 7 inputs + 5 outputs; each live chunk's super block read once
+        n_bytes = args[0].shape[0] * w2.CHUNK * (7 + 5) * 4 + stats["live_chunks"] * (8 * k * 16 + 8 * 8) * 4
+        n_ops = stats["open_gates"] * 128 * k * MT_OPS
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        log(f"time [{label} {kind}] at the window shape: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound "
+            f"{b_ms:.6f} ms by {b_by} ({n_bytes} bytes, {n_ops} operations); the same operations without fused "
+            f"multiply-adds, one instruction each: {2 * n_ops / H100_F32_OPS_PER_S * 1e3:.6f} ms")
+        if not any_hit:
+            out.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, chunks=int(args[0].shape[0]))
+    return out
+
+
 def check_wave2_kernel(cs, dev, log=print, reps=20, plain_reps=5, n_rays=w2.SUBWAVE):
     """The wave2 Möller-Trumbore kernel against its plain twin, closest-hit
     and any-hit, bit-equal or exit: on one real window of ``n_rays``
@@ -552,28 +580,13 @@ def check_wave2_kernel(cs, dev, log=print, reps=20, plain_reps=5, n_rays=w2.SUBW
     import bench_mesh
     from raytracer_tpu_torch.scene.clusters import build_clusters
 
-    k = cs.tris_per_cluster
     rng = np.random.default_rng(7)
     o, d = incoherent_rays(n_rays, rng)
     row = {"name": "wave2_mt", "route": "cuda", "source": "raytracer_tpu_torch/csrc/wave2_mt.cu",
-           "replaces": "raytracer_tpu/ops/wave2_traverse.py:324", "launches": 0, "library_ms": None,
-           "max_abs_err": 0.0}
-    for any_hit, tl_value in ((False, BIGF), (True, 4.0)):
-        args = _window_chunks(cs, o, d, tl_value, dev)
-        label = "any-hit" if any_hit else "closest"
-        err, stats = _mt_case(f"window K={k} {label}", args, any_hit, log)
-        row["max_abs_err"] = max(row["max_abs_err"], err)
-        ms = cuda_ms(lambda: w2.mt_chunks(*args, any_hit=any_hit), reps=reps)
-        plain_ms = cuda_ms(lambda: w2.mt_chunks_reference(*args, any_hit=any_hit), reps=plain_reps, warmup=1)
-        # each chunk's 1,024 pairs: 7 inputs + 5 outputs; each live chunk's super block read once
-        n_bytes = args[0].shape[0] * w2.CHUNK * (7 + 5) * 4 + stats["live_chunks"] * (8 * k * 16 + 8 * 8) * 4
-        n_ops = stats["open_gates"] * 128 * k * MT_OPS
-        b_ms, b_by = bound_ms(n_bytes, n_ops)
-        log(f"time [{label}] at the window shape: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound {b_ms:.6f} ms "
-            f"by {b_by} ({n_bytes} bytes, {n_ops} operations); the same operations without fused "
-            f"multiply-adds, one instruction each: {2 * n_ops / H100_F32_OPS_PER_S * 1e3:.6f} ms")
-        if not any_hit:
-            row.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+           "replaces": "raytracer_tpu/ops/wave2_traverse.py:324", "launches": 0, "library_ms": None}
+    window = check_wave2_window(cs, o, d, 4.0, dev, log, reps=reps, plain_reps=plain_reps)
+    window.pop("chunks")
+    row.update(window)
 
     cases = []
     for tk in (8, 16):
