@@ -5,9 +5,9 @@
 Phases (any failure exits non-zero before the last line):
 
 1. device: needs CUDA; prints the card, its power limit, torch and CUDA.
-2. build: compiles csrc/wave2_mt.cu, phase2_grid.cu, phase2_stream.cu and
-   add_one.cu with nvcc, all at once, into raytracer_tpu_torch/_build/, and
-   prints what ptxas says of each.
+2. build: compiles csrc/wave2_mt.cu, phase2_grid.cu, phase2_stream.cu,
+   add_one.cu and bvh_walk.cu with nvcc, all at once, into
+   raytracer_tpu_torch/_build/, and prints what ptxas says of each.
 3. wave2 kernel vs twin (tools/torch_check_traverse.py::check_wave2_kernel):
    on the 200k-triangle bench mesh, one real traversal window (65,536
    incoherent rays, kc=16) is joined into pair chunks; the CUDA
@@ -64,7 +64,9 @@ Phases (any failure exits non-zero before the last line):
     loaded by the port's loader: no textures (both loaders ignore map_Kd),
     2 area lights + background; 512^2, depth 6, MIS under wave2 (1 warm-up +
     4 timed passes): Mray/s, rays, shadow rays, overflow = 0, wave2_mt
-    launches > 0, finite radiance, peak memory; one profiled pass.  Before
+    launches > 0, finite radiance, peak memory; one profiled pass.  The
+    load's BVH build is logged with its own time and the device memory it
+    adds (as every BVH build of the script is).  Before
     the render, on this scene's own cluster set: the wave2_mt kernel against
     its twin (bit-equal, timed) on a window of the scene's camera rays and on
     a window of bounce rays leaving their hit points, and the wave2 engine,
@@ -77,10 +79,38 @@ Phases (any failure exits non-zero before the last line):
     that is neither constant nor saturated; before it, a 32^2 render of the
     small textured scene on the card against the CPU.
 
-Prints the kernel table as one JSON line before the last line (the wave2_mt
-row's top-level numbers are the 200k mesh's window; its ``by_path`` entry
-gives each driven path's launches and its own windows), and last
-{"ok": true, "device": {...}}.  Scene files are written under
+14. the skip-link BVH walk (csrc/bvh_walk.cu, one thread a ray) on the
+    200k-triangle mesh and on the baked 800k-triangle hall: on a window of
+    65,536 camera rays and one of bounce rays, the kernel against its plain
+    twin, closest-hit and any-hit, every output and each ray's step count
+    bit-equal (tools/torch_check_traverse.py::check_bvh_walk; the kernel
+    timed over 20 calls, the twin once; the distinct table rows the twin
+    reads and its visits give the bound),
+    and the walk against the wave2 engine (bvh_against_wave2: tri ids equal
+    but on exact ties, t within 1e-6 relative, occlusion equal).  Then
+    mesh200k_mis and interior800k_mis at 512^2, depth 6, MIS under
+    set_traversal_mode("bvh") (1 warm-up + 4 timed passes): bvh_walk
+    launches > 0, wave2_mt launches 0, mean radiance within 1e-3 of the same
+    scene's wave2 render at the same seed and passes.
+15. interior800k_inst_mis: the hall with its 28 columns and 3 knots as 31
+    instances of 2 meshes (tools/torch_gen_interior.py::ensure_interior_inst):
+    geometry and instance counts, triangles stored and the scene's bytes
+    beside the baked hall's; the kernel and engine checks of phase 12 on the
+    shell's cluster set and on each geometry's, the latter with the camera
+    rays moved into the object space of one instance of it, and phase 14's
+    bvh_walk checks on the shell's BVH; 512^2, depth 6, MIS under wave2 (1 warm-up + 2
+    timed passes), overflow 0, one profiled pass; the mean radiance within 1%
+    of the baked hall's at the same seed and passes; then one timed pass
+    under bvh, where the shell launches bvh_walk and the instances wave2_mt.
+
+Every line goes to raytracer_tpu_torch/_build/chip_smoke.log too (truncated
+at the start of a run), since the tail of the output may be cut.  The last
+lines are a summary: one line per driven render (Mray/s, ms a pass, rays,
+shadow rays, kernel launches, overflow, peak memory), the nvidia-smi line,
+the kernel table as one JSON line (the wave2_mt row's top-level numbers are
+the 200k mesh's window, the bvh_walk row's the 200k mesh's bounce window;
+each ``by_path`` entry gives a driven path's launches and its own windows),
+and last {"ok": true, "device": {...}}.  Scene files are written under
 raytracer_tpu_torch/_build/.  No phase imports PIL.
 """
 
@@ -109,6 +139,7 @@ from torch_check_traverse import bound_ms, coherent_rays, incoherent_rays, vec  
 from raytracer_tpu_torch.integrators.path_tracer import RenderParams  # noqa: E402
 from raytracer_tpu_torch.io.scene_loader import load_scene  # noqa: E402
 from raytracer_tpu_torch.math.transform import RigidTransform  # noqa: E402
+from raytracer_tpu_torch.ops import bvh_traverse as bt  # noqa: E402
 from raytracer_tpu_torch.ops import cuda_build  # noqa: E402
 from raytracer_tpu_torch.ops import pallas_traverse as pt  # noqa: E402
 from raytracer_tpu_torch.ops import traverse  # noqa: E402
@@ -116,16 +147,29 @@ from raytracer_tpu_torch.ops import wave2_traverse as w2  # noqa: E402
 from raytracer_tpu_torch.ops.launch_probe import add_one  # noqa: E402
 from raytracer_tpu_torch.render.renderer import Viewport, ViewportParams, pixel_grid  # noqa: E402
 from raytracer_tpu_torch.sampler.sampler import make_stream  # noqa: E402
+from raytracer_tpu_torch.scene import bvh as bvh_module  # noqa: E402
+from raytracer_tpu_torch.scene.bvh import bvh_stats  # noqa: E402
 from raytracer_tpu_torch.scene.camera import generate_rays, make_camera  # noqa: E402
 from raytracer_tpu_torch.scene.presets import cornell_box, cornell_camera_kw  # noqa: E402
 
 bench_mesh.BENCH_DIR = os.path.join(ROOT, "raytracer_tpu_torch", "_build", "bench_scene")
 INTERIOR_DIR = os.path.join(ROOT, "raytracer_tpu_torch", "_build", "interior")
-KERNELS = ("wave2_mt", "phase2_grid", "phase2_stream", "add_one")
+LOG_PATH = os.path.join(ROOT, "raytracer_tpu_torch", "_build", "chip_smoke.log")
+KERNELS = ("wave2_mt", "phase2_grid", "phase2_stream", "add_one", "bvh_walk")
+_LOG = []  # the open log file, once main() has opened it
+RENDERS = []  # one summary entry per timed render
 
 
 def log(msg: str):
     print(msg, flush=True)
+    for f in _LOG:
+        f.write(msg + "\n")
+        f.flush()
+
+
+def launch_counts() -> dict:
+    return {"wave2_mt": w2.mt_chunks.launches, "phase2_grid": pt.phase2_grid.launches,
+            "phase2_stream": pt.phase2_stream.launches, "bvh_walk": bt.bvh_walk.launches}
 
 
 class twin_engine:
@@ -147,7 +191,8 @@ def check(cond, msg):
 def timed_render(vp, passes, smi, label):
     """1 warm-up pass, then ``passes`` timed ones ending with the film on
     the host.  Returns (seconds, rays, shadow rays, overflow in the timed
-    passes, radiance)."""
+    passes, radiance), and adds the render's line to the summary."""
+    counts0 = launch_counts()
     t0 = time.perf_counter()
     vp.render(1)
     torch.cuda.synchronize()
@@ -162,9 +207,14 @@ def timed_render(vp, passes, smi, label):
     rays = after["total_rays"] - before["total_rays"]
     shadow = after["total_shadow_rays"] - before["total_shadow_rays"]
     overflow = after["total_traversal_overflow"] - before["total_traversal_overflow"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"{label} 512^2 depth 6, {passes} passes: {dt:.3f} s, {(rays + shadow) / dt / 1e6:.4f} Mray/s, "
         f"rays {rays:.0f}, shadow rays {shadow:.0f}, overflow {overflow:.0f}, "
-        f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB ({smi})")
+        f"peak mem {peak:.2f} GiB ({smi})")
+    launched = {k: v - counts0[k] for k, v in launch_counts().items() if v != counts0[k]}
+    RENDERS.append(f"summary {label}: {(rays + shadow) / dt / 1e6:.4f} Mray/s, {dt / passes * 1e3:.1f} ms a pass, "
+                   f"rays {rays:.0f} and shadow rays {shadow:.0f} in {passes} passes, kernel launches in "
+                   f"{passes + 1} passes {launched}, overflow {overflow:.0f}, peak {peak:.2f} GiB")
     return dt, rays, shadow, overflow, radiance
 
 
@@ -182,15 +232,23 @@ def profiled_pass(vp, label, top=8, named=()):
     wall = time.perf_counter() - t0
     from torch.autograd import DeviceType
 
-    dev_time = lambda e: getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-    # kernels and copies only: the host-side ops carry their kernels' time a second time
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and dev_time(e) > 0]
-    total = sum(dev_time(e) for e in events)
-    log(f"{label} profiled pass: wall {wall * 1e3:.1f} ms, device kernel time {total / 1e3:.1f} ms, "
-        f"{sum(e.count for e in events)} device events")
-    ranked = sorted(events, key=dev_time, reverse=True)
-    for e in ranked[:top] + [e for e in ranked[top:] if any(n in e.key for n in named)]:
-        log(f"  {dev_time(e) / 1e3:9.2f} ms  {e.count:6d} calls  {e.key[:90]}")
+    # kernels and copies only, summed by name straight from the trace: the
+    # host-side ops would carry their kernels' time a second time, and
+    # key_averages() builds the host's event tree first, which takes minutes
+    # on a pass of ~600k device events
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and e.duration_ns() > 0:
+            ms, count = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, count + 1)
+    total = sum(ms for ms, _ in by_name.values())
+    log(f"{label} profiled pass: wall {wall * 1e3:.1f} ms, device kernel time {total:.1f} ms, "
+        f"{sum(count for _, count in by_name.values())} device events (trace read in "
+        f"{time.perf_counter() - t0 - wall:.1f} s)")
+    ranked = sorted(by_name.items(), key=lambda item: item[1][0], reverse=True)
+    for key, (ms, count) in ranked[:top] + [item for item in ranked[top:] if any(n in item[0] for n in named)]:
+        log(f"  {ms:9.2f} ms  {count:6d} calls  {key[:90]}")
+    return total
 
 
 def small_render_agrees(params, dev, label, small=None, name="mesh2k"):
@@ -234,18 +292,22 @@ def engine_agrees(cs, o, d, any_tl, dev, label):
     return k_hit
 
 
-def interior_windows(scene, meta, cam, dev, label):
-    """The wave2_mt kernel and the wave2 engine held against the twin on the
-    interior's own cluster set, with two windows of w2.SUBWAVE rays of the
-    driven path: the camera rays of the frame at half its resolution, and
-    bounce rays that leave those rays' hit points in seeded random directions
-    (rays that hit nothing keep their origin).  Any-hit rays are as long as
-    the scene's radius.  Returns {window: check_wave2_window's numbers}."""
+def camera_window(cam, dev):
+    """w2.SUBWAVE camera rays of the driven frame at half its resolution, as
+    (n, 3) origins and directions."""
     side = int(w2.SUBWAVE ** 0.5)
     cx, cy, pixel_ids = pixel_grid(side, side, device=dev)
     rays, _ = generate_rays(cam, cx, cy, make_stream(pixel_ids.to(torch.int64), 0, seed=0))
-    o, d = torch.stack(tuple(rays.origin), 1), torch.stack(tuple(rays.dir), 1)
-    cs, reach = scene.clusters, float(meta.scene_radius)
+    return torch.stack(tuple(rays.origin), 1), torch.stack(tuple(rays.dir), 1)
+
+
+def cluster_windows(cs, o, d, reach, dev, label):
+    """The wave2_mt kernel and the wave2 engine held against the twin on the
+    cluster set ``cs``, with two windows of the driven path: the camera rays
+    ``o``, ``d``, and bounce rays that leave those rays' hit points in
+    seeded random directions (rays that hit nothing keep their origin).
+    Any-hit rays are ``reach`` long.  Returns {window: check_wave2_window's
+    numbers}."""
     t, tri = engine_agrees(cs, o, d, reach, dev, f"{label} camera")[:2]
     windows = {"camera": tct.check_wave2_window(cs, o, d, reach, dev, log, label=f"{label} camera window")}
     hit = (tri >= 0)[:, None]
@@ -261,7 +323,7 @@ def interior_render(path, dev, smi, label, textured):
     """Phases 12 and 13: load an interior scene, check what it holds, render
     512^2 depth 6 MIS under wave2 (1 warm-up + 4 timed passes, one profiled)
     with the wave2_mt launches counted; before the render, the kernel and the
-    engine against the twin on this scene's cluster set (interior_windows).
+    engine against the twin on this scene's cluster set (cluster_windows).
     Returns (viewport, {"launches": ..., "windows": ...})."""
     t0 = time.perf_counter()
     scene, meta, cam = load_scene(path, strict=True, device=dev)
@@ -286,7 +348,7 @@ def interior_render(path, dev, smi, label, textured):
               "the interior has no textures (the OBJ maps are ignored, as in the reference loader)")
     check(traverse.get_traversal_mode() == "auto" and not os.environ.get("RT_TRAVERSAL_MODE"),
           "the traversal mode is the default (auto -> wave2)")
-    windows = interior_windows(scene, meta, cam, dev, label)
+    windows = cluster_windows(cs, *camera_window(cam, dev), float(meta.scene_radius), dev, label)
     vp = Viewport(scene, meta, cam, ViewportParams(512, 512, seed=0), RenderParams(max_depth=6, mis=True), device=dev)
     w2.mt_chunks.launches = 0
     _, _, _, overflow, radiance = timed_render(vp, 4, smi, f"{label} [wave2]")
@@ -296,10 +358,183 @@ def interior_render(path, dev, smi, label, textured):
     check(overflow == 0, f"{label}: traversal overflow is 0")
     check(bool(np.isfinite(radiance).all()) and radiance.mean() > 0, f"{label}: radiance finite with non-zero mean")
     profiled_pass(vp, f"{label} [wave2]", named=("wave2_mt",))
-    return vp, {"launches": launches, "windows": windows}
+    return vp, {"launches": launches, "windows": windows, "mean": float(radiance.mean())}
+
+
+def bvh_windows(scene, meta, cam, dev, label):
+    """Phases 14 and 15 on one scene's BVH: the bvh_walk kernel against its twin
+    (check_bvh_walk) and the walk against the wave2 engine
+    (bvh_against_wave2) on two windows of w2.SUBWAVE rays: the camera rays
+    of the frame at half its resolution, and bounce rays that leave those
+    rays' hit points in seeded random directions.  Any-hit rays are as long
+    as the scene's radius.  Returns {window: {"closest": ..., "any-hit":
+    ..., "wave2": counts}}."""
+    o, d = camera_window(cam, dev)
+    reach = float(meta.scene_radius)
+    first = bt.bvh_walk(scene.bvh, vec(o, dev), vec(d, dev), torch.full((o.shape[0],), 3.0e38, device=dev), False)
+    bo = torch.where((first.tri >= 0)[:, None], o + d * (first.t * (1.0 - 1e-4))[:, None], o)
+    bd = np.random.default_rng(12).normal(size=(o.shape[0], 3)).astype(np.float32)
+    bd = torch.as_tensor(bd / np.linalg.norm(bd, axis=1, keepdims=True), device=dev)
+    out = {}
+    for window, (wo, wd) in (("camera", (o, d)), ("bounce", (bo, bd))):
+        out[window] = tct.check_bvh_walk(scene.bvh, wo, wd, reach, dev, log, label=f"{label} {window} window")
+        out[window]["wave2"] = tct.bvh_against_wave2(scene.bvh, scene.clusters, wo, wd, reach, dev, log,
+                                                     label=f"{label} {window} window")
+    return out
+
+
+def bvh_render(scene, meta, cam, dev, smi, label, wave2_mean, windows):
+    """A 512^2, depth 6, MIS render under the ``bvh`` mode (1 warm-up + 4
+    timed passes): bvh_walk launches, no wave2_mt launch, mean radiance
+    within 1e-3 of the wave2 render's at the same seed and passes.  Returns
+    the bvh_walk launches."""
+    traverse.set_traversal_mode("bvh")
+    vp = Viewport(scene, meta, cam, ViewportParams(512, 512, seed=0), RenderParams(max_depth=6, mis=True), device=dev)
+    bt.bvh_walk.launches = w2.mt_chunks.launches = 0
+    _, _, _, overflow, radiance = timed_render(vp, 4, smi, f"{label} [bvh]")
+    launches, w2_launches = bt.bvh_walk.launches, w2.mt_chunks.launches
+    traverse.set_traversal_mode("auto")
+    rel = abs(float(radiance.mean()) - wave2_mean) / wave2_mean
+    most = max(w[kind]["max_steps"] for w in windows.values() for kind in ("closest", "any-hit"))
+    log(f"{label} [bvh]: bvh_walk launches {launches}, wave2_mt launches {w2_launches} in 5 passes; largest steps "
+        f"a ray in the windows {most}; mean radiance {radiance.mean():.6f} against wave2's {wave2_mean:.6f}: "
+        f"relative difference {rel:.3e}")
+    check(launches > 0 and w2_launches == 0, f"the {label} bvh render launched bvh_walk and not wave2_mt")
+    check(overflow == 0 and bool(np.isfinite(radiance).all()), f"{label} [bvh]: no overflow, finite radiance")
+    check(rel <= 1e-3, f"{label}: the bvh render's mean radiance within 1e-3 of the wave2 render's")
+    check(traverse.get_traversal_mode() == "auto", "the traversal mode is back to auto")
+    return launches
+
+
+def scene_bytes(scene) -> int:
+    """Bytes of every tensor a scene holds (each storage counted once)."""
+    seen = {}
+
+    def walk(x):
+        if torch.is_tensor(x):
+            seen[x.untyped_storage().data_ptr()] = x.untyped_storage().nbytes()
+        elif isinstance(x, (tuple, list)):
+            for y in x:
+                walk(y)
+        elif hasattr(x, "__dataclass_fields__"):
+            for name in x.__dataclass_fields__:
+                walk(getattr(x, name))
+        elif hasattr(x, "_fields"):
+            walk(tuple(x))
+
+    walk(scene)
+    return sum(seen.values())
+
+
+def instance_windows(scene, meta, cam, dev, label):
+    """cluster_windows on the instanced scene's cluster sets: the shell's,
+    and each geometry's with the camera rays moved into the object space of
+    the instance of that geometry that the camera sees most (the rays each
+    instance query gives the kernel).  Returns {"<set> <window>": numbers}."""
+    o, d = camera_window(cam, dev)
+    reach = float(meta.scene_radius)
+    windows = {f"shell {w}": v for w, v in cluster_windows(scene.clusters, o, d, reach, dev, f"{label} shell").items()}
+    seen = traverse.scene_traverse(scene, vec(o, dev), vec(d, dev)).inst_id
+    per_inst = torch.bincount(seen[seen >= 0].long(), minlength=scene.instances.count).tolist()
+    for m, geom in enumerate(scene.mesh_geoms):
+        i = max((i for i, mid in enumerate(scene.instances.mesh_ids) if mid == m), key=lambda i: per_inst[i])
+        lo, ld = traverse._instance_local_ray(scene, i, vec(o, dev), vec(d, dev))
+        name = f"geometry {m} ({geom.tris.count} tris) in instance {i}"
+        log(f"{label}: {name} is what {per_inst[i]} of {o.shape[0]} camera rays see first")
+        got = cluster_windows(geom.clusters, torch.stack(tuple(lo), 1), torch.stack(tuple(ld), 1), reach, dev,
+                              f"{label} {name}")
+        windows.update({f"{name} {w}": v for w, v in got.items()})
+    return windows
+
+
+def instanced_hall(baked, dev, smi):
+    """Phase 15: the instanced hall against the baked one (``baked`` is the
+    phase-12 viewport); before the renders, wave2_mt and the wave2 engine
+    against the twin on each of its cluster sets (instance_windows) and
+    bvh_walk against its twin on the shell's BVH (bvh_windows).  Returns
+    (the wave2 render's wave2_mt launches and windows, the bvh pass's
+    (bvh_walk, wave2_mt) launches and the bvh_walk windows)."""
+    t0 = time.perf_counter()
+    path = torch_gen_interior.ensure_interior_inst(INTERIOR_DIR)
+    scene, meta, cam = load_scene(path, strict=True, device=dev)
+    torch.cuda.synchronize()
+    geoms, inst = scene.mesh_geoms, scene.instances
+    world = scene.tris.count + sum(geoms[m].tris.count for m in inst.mesh_ids)
+    stored = scene.tris.count + sum(g.tris.count for g in geoms)
+    own, theirs = scene_bytes(scene), scene_bytes(baked.scene)
+    log(f"scene: interior800k_inst_mis loaded in {time.perf_counter() - t0:.1f} s; {len(geoms)} geometries "
+        f"({[g.tris.count for g in geoms]} tris), {inst.count} instances, {scene.tris.count} baked tris; "
+        f"{stored} tris stored for {world} in the world (baked hall: {baked.scene.tris.count}); scene tensors "
+        f"{own / 2**20:.1f} MiB against the baked hall's {theirs / 2**20:.1f} MiB; BVH nodes {scene.bvh.num_nodes}")
+    check(len(geoms) == 2 and inst.count == 31, "the instanced hall holds 2 geometries and 31 instances")
+    check(world == baked.scene.tris.count, "its world holds the baked hall's triangle count")
+    check(traverse.get_traversal_mode() == "auto", "the traversal mode is the default (auto -> wave2)")
+    windows = instance_windows(scene, meta, cam, dev, "interior800k_inst_mis")
+    log(f"scene: interior800k_inst_mis shell BVH {bvh_stats(scene.bvh)}, step budget "
+        f"{bt.walk_budget(scene.bvh.num_nodes)}")
+    walk_windows = bvh_windows(scene, meta, cam, dev, "interior800k_inst_mis shell")
+    vp = Viewport(scene, meta, cam, ViewportParams(512, 512, seed=0), RenderParams(max_depth=6, mis=True), device=dev)
+    w2.mt_chunks.launches = 0
+    dt, _, _, overflow, radiance = timed_render(vp, 2, smi, "interior800k_inst_mis [wave2]")
+    launches = w2.mt_chunks.launches
+    check(launches > 0 and overflow == 0, "interior800k_inst_mis: wave2_mt launched, overflow 0")
+    check(bool(np.isfinite(radiance).all()) and radiance.mean() > 0, "interior800k_inst_mis: radiance finite, non-zero")
+    device_ms = profiled_pass(vp, "interior800k_inst_mis [wave2]", named=("wave2_mt",))
+    log(f"interior800k_inst_mis [wave2]: wave2_mt launches {launches} in 3 passes; device time "
+        f"{device_ms:.1f} ms of an unprofiled pass's {dt / 2 * 1e3:.1f} ms: idle {1 - device_ms / (dt / 2 * 1e3):.3f}")
+    ref = Viewport(baked.scene, baked.meta, baked.cam, ViewportParams(512, 512, seed=0),
+                   RenderParams(max_depth=6, mis=True), device=dev).render(3).radiance()
+    rel = abs(float(radiance.mean()) - float(ref.mean())) / float(ref.mean())
+    log(f"interior800k_inst_mis: mean radiance {radiance.mean():.6f} against the baked hall's {ref.mean():.6f} "
+        f"after 3 passes each: relative difference {rel:.3e}")
+    check(rel <= 0.01, "the instanced hall's mean radiance within 1% of the baked hall's")
+    traverse.set_traversal_mode("bvh")
+    bt.bvh_walk.launches = w2.mt_chunks.launches = 0
+    bvp = Viewport(scene, meta, cam, ViewportParams(512, 512, seed=0), RenderParams(max_depth=6, mis=True), device=dev)
+    t0 = time.perf_counter()
+    bvp.render(1)
+    torch.cuda.synchronize()
+    both = (bt.bvh_walk.launches, w2.mt_chunks.launches)
+    traverse.set_traversal_mode("auto")
+    log(f"interior800k_inst_mis [bvh] one pass: {(time.perf_counter() - t0) * 1e3:.1f} ms; bvh_walk launches "
+        f"{both[0]} (the shell), wave2_mt launches {both[1]} (the instances)")
+    check(both[0] > 0 and both[1] > 0, "under bvh the shell launched bvh_walk and the instances wave2_mt")
+    return (launches, windows), (both, walk_windows)
+
+
+def log_bvh_builds():
+    """From here on, every BVH a scene build makes (scene/bvh.py's
+    build_bvh_over_triangles, which scene/build.py looks up at each call) is
+    logged with its own wall time and the device memory it adds."""
+    build = bvh_module.build_bvh_over_triangles
+
+    def timed(tri_v, *args, **kw):
+        torch.cuda.synchronize()
+        before, t0 = torch.cuda.memory_allocated(), time.perf_counter()
+        out = build(tri_v, *args, **kw)
+        torch.cuda.synchronize()
+        log(f"bvh build: {tri_v.shape[0]} tris -> {out[1].num_nodes} nodes on {kw.get('device')} in "
+            f"{time.perf_counter() - t0:.3f} s; device memory {before / 2**20:.1f} -> "
+            f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB (+{(torch.cuda.memory_allocated() - before) / 2**20:.1f}"
+            f" MiB; the BVHFlat tables {scene_bytes(out[1]) / 2**20:.1f} MiB)")
+        return out
+
+    bvh_module.build_bvh_over_triangles = timed
 
 
 def main():
+    os.makedirs(os.path.dirname(LOG_PATH), exist_ok=True)
+    _LOG.append(open(LOG_PATH, "w"))
+    try:
+        run()
+    except BaseException as e:  # the failure goes into the log too, then on
+        log(f"FAIL: {type(e).__name__}: {e}")
+        raise
+    finally:
+        _LOG.pop().close()
+
+
+def run():
     # --- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("FAIL: torch.cuda.is_available() is false; this script needs one NVIDIA GPU")
@@ -311,7 +546,7 @@ def main():
     log(f"nvidia-smi: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
-    # --- 2 + 6. build all four libraries, one nvcc each, together -----------
+    # --- 2 + 6. build all five libraries, one nvcc each, together -----------
     t0 = time.perf_counter()
     cuda_build.build_kernel_libraries(KERNELS)
     log(f"build: {len(KERNELS)} libraries in {time.perf_counter() - t0:.2f} s")
@@ -320,6 +555,7 @@ def main():
         log(f"build [{kernel}] {cuda_build.BUILD_INFO[kernel]['seconds']:.2f} s\n{cuda_build.BUILD_INFO[kernel]['log']}")
 
     # --- 3. wave2 kernel vs twin: one real window, the tie cases, K = 8 and 128 ---
+    log_bvh_builds()
     t0 = time.perf_counter()
     mscene, mmeta, mcam = load_scene(bench_mesh.ensure_scene(200_000), device=dev)
     cs_set = mscene.clusters
@@ -341,6 +577,7 @@ def main():
     vp = Viewport(mscene, mmeta, mcam, ViewportParams(512, 512, seed=0), params, device=dev)
     w2.mt_chunks.launches = 0
     _, _, _, overflow, radiance = timed_render(vp, 4, smi, "mesh200k_mis [wave2]")
+    mesh_mean = float(radiance.mean())
     rows["wave2_mt"]["launches"] = w2.mt_chunks.launches  # warm-up + timed passes of this drive
     log(f"mesh200k_mis [wave2]: wave2_mt launches {w2.mt_chunks.launches}")
     check(w2.mt_chunks.launches > 0, "the mesh render launched the wave2_mt kernel")
@@ -413,7 +650,7 @@ def main():
     mt = rows["wave2_mt"]
     window = {key: mt[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
     mt["by_path"] = {"mesh200k_mis": {"launches": mt["launches"], "windows": {"incoherent": window}}}
-    _, mt["by_path"]["interior800k_mis"] = interior_render(plain_json, dev, smi, "interior800k_mis", False)
+    hall, mt["by_path"]["interior800k_mis"] = interior_render(plain_json, dev, smi, "interior800k_mis", False)
 
     # --- 13. the textured interior ---------------------------------------------
     small = small_render_agrees(params, dev, "wave2", name="small textured scene",
@@ -430,7 +667,35 @@ def main():
     check(image.shape == (512, 512, 3) and image.dtype == np.uint8, "image() is a (512, 512, 3) uint8 array")
     check(image.min() < image.max() and float((image == 255).mean()) < 0.5 and float((image == 0).mean()) < 0.5,
           "the image is neither constant nor saturated")
+
+    # --- 14. the skip-link BVH walk: kernel, engine, renders -------------------
+    t14 = time.perf_counter()
+    by_path = {}
+    for label, (sc, me, ca, mean) in (("mesh200k_mis", (mscene, mmeta, mcam, mesh_mean)),
+                                      ("interior800k_mis", (hall.scene, hall.meta, hall.cam,
+                                                            mt["by_path"]["interior800k_mis"]["mean"]))):
+        log(f"scene: {label} BVH {bvh_stats(sc.bvh)}, step budget {bt.walk_budget(sc.bvh.num_nodes)}")
+        windows = bvh_windows(sc, me, ca, dev, label)
+        by_path[label] = {"windows": windows, "launches": bvh_render(sc, me, ca, dev, smi, label, mean, windows)}
+    log(f"phase 14 (bvh walk) wall time {time.perf_counter() - t14:.1f} s")
+
+    # --- 15. the instanced hall --------------------------------------------------
+    t15 = time.perf_counter()
+    (inst_launches, inst_windows), (inst_bvh, walk_windows) = instanced_hall(hall, dev, smi)
+    mt["by_path"]["interior800k_inst_mis"] = {"launches": inst_launches, "windows": inst_windows}
+    by_path["interior800k_inst_mis (shell under bvh, one pass)"] = {"launches": inst_bvh[0], "windows": walk_windows}
     mt["max_abs_err"] = max(w["max_abs_err"] for path in mt["by_path"].values() for w in path["windows"].values())
+    log(f"phase 15 (instanced hall) wall time {time.perf_counter() - t15:.1f} s")
+
+    top = by_path["mesh200k_mis"]["windows"]["bounce"]["closest"]
+    rows["bvh_walk"] = {
+        "name": "bvh_walk", "route": "cuda", "source": "raytracer_tpu_torch/csrc/bvh_walk.cu",
+        "replaces": "raytracer_tpu/ops/bvh_traverse.py:131", "launches": sum(
+            by_path[p]["launches"] for p in ("mesh200k_mis", "interior800k_mis")),
+        "max_abs_err": max(w[k]["max_abs_err"] for p in by_path.values() for w in p["windows"].values()
+                           for k in ("closest", "any-hit")),
+        **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
+        "by_path": by_path}
 
     check("PIL" not in sys.modules, "no phase imported PIL")
     for mod in ("jax", "raytracer_tpu"):
@@ -440,10 +705,11 @@ def main():
     for path, entry in mt["by_path"].items():
         check(entry["launches"] > 0, f"wave2_mt: launched {entry['launches']} times on {path}")
 
-    print(f"{smi}", flush=True)
-    print(json.dumps({"kernels": [rows[kernel] for kernel in KERNELS]}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": torch.cuda.device_count()}}), flush=True)
+    for line in RENDERS:
+        log(line)
+    log(f"{smi}")
+    log(json.dumps({"kernels": [rows[kernel] for kernel in KERNELS]}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

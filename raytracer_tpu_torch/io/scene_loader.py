@@ -9,8 +9,9 @@ sphere / point / spot / directional / background lights with an optional
 numpy and EXR files through the port's ``io/exr.py``; any other bitmap
 format needs PIL, which is imported only then.  The texture maps an OBJ's
 ``.mtl`` names (``map_Kd``, ``map_bump``, ``map_d``) are ignored, as the
-reference loader ignores them.  A mesh placed more than once (instancing)
-and ``csg`` objects raise.  Box/rect ``size`` are HALF-extents.
+reference loader ignores them.  A mesh path placed more than once at scale
+1 becomes one shared object-space geometry and one rigid instance per
+placement.  ``csg`` objects raise.  Box/rect ``size`` are HALF-extents.
 """
 
 from __future__ import annotations
@@ -181,11 +182,16 @@ def _parse_materials(doc: dict, builder: SceneBuilder, tex: _TexResolver):
 
 
 def _parse_objects(doc: dict, builder: SceneBuilder, data_path: str):
+    # a mesh path used by several objects becomes one shared object-space
+    # geometry plus one instance per object; as in the reference, each use
+    # registers the OBJ's materials again, and the geometry keeps the
+    # material ids of its first use
     path_uses = Counter(
         (o.get("path"), float(o.get("scale", 1.0)))
         for o in doc.get("objects", [])
         if o.get("type") == "mesh"
     )
+    mesh_geom_cache: dict = {}
     for o in doc.get("objects", []):
         typ = o.get("type")
         tf = parse_transform(o.get("transform"))
@@ -202,11 +208,6 @@ def _parse_objects(doc: dict, builder: SceneBuilder, data_path: str):
                              uv_scale=(float(ts[0]), float(ts[1])))
         elif typ == "mesh":
             path = o["path"]
-            if path_uses[(path, float(o.get("scale", 1.0)))] > 1 and tf.scale == 1.0:
-                raise SceneLoadError(
-                    f"mesh '{path}' is placed more than once: instancing is not "
-                    "ported yet (ROADMAP queue 1, item 16)"
-                )
             full = path if os.path.isabs(path) else os.path.join(data_path, path)
             mesh = load_obj(full, scale=float(o.get("scale", 1.0)))
             # OBJ materials map onto the scene table: Kd/Ke + roughness 0.075
@@ -225,7 +226,14 @@ def _parse_objects(doc: dict, builder: SceneBuilder, data_path: str):
                 for om in mesh.materials
             ]
             fm = np.asarray([remap[i] for i in mesh.face_materials], np.int64)
-            builder.add_mesh(mesh.vertices, mesh.faces, mesh.normals, mesh.uvs, fm, tf)
+            key = (path, float(o.get("scale", 1.0)))
+            if path_uses[key] > 1 and tf.scale == 1.0:
+                if key not in mesh_geom_cache:
+                    mesh_geom_cache[key] = builder.add_mesh_geometry(
+                        mesh.vertices, mesh.faces, mesh.normals, mesh.uvs, fm)
+                builder.add_mesh_instance(mesh_geom_cache[key], tf)
+            else:
+                builder.add_mesh(mesh.vertices, mesh.faces, mesh.normals, mesh.uvs, fm, tf)
         elif typ == "csg":
             raise SceneLoadError("csg objects not supported yet")
         else:

@@ -29,8 +29,12 @@ class Hits(NamedTuple):
     u: torch.Tensor  # (N,) barycentric / local coords
     v: torch.Tensor
     overflow: torch.Tensor = None  # (N,) bool: traversal may have truncated
+    # instance index for hits on instanced meshes; -1 = baked geometry,
+    # analytic prim or miss
+    inst_id: torch.Tensor = None
     # winner's interpolated shading frame for triangle hits: 6-tuple
-    # (nx, ny, nz, tex_u, tex_v, material_id as f32)
+    # (nx, ny, nz, tex_u, tex_v, material_id as f32), in the mesh's space
+    # (object space for instanced hits)
     attr: tuple = None
 
 

@@ -1,13 +1,17 @@
-"""Unified scene traversal: analytic prims + the triangle mesh (port of
-``raytracer_tpu/ops/traverse.py``).
+"""Unified scene traversal: analytic prims, the baked triangle mesh and
+instanced meshes (port of ``raytracer_tpu/ops/traverse.py``).
 
 Closest hit across all geometry kinds, and an any-hit occlusion query for
-shadow rays.  The mesh goes to the backend that ``set_traversal_mode`` or
-the ``RT_TRAVERSAL_MODE`` environment variable selects:
+shadow rays.  A mesh goes to the backend that ``set_traversal_mode`` or the
+``RT_TRAVERSAL_MODE`` environment variable selects:
 
 - ``"wave2"``: the sort-join engine (``ops/wave2_traverse.py``), exact, with
   per-lane any-hit early exit and interpolated shading attributes.  What
   ``"auto"`` (the default) resolves to.
+- ``"bvh"``: the stackless skip-link BVH walk (``ops/bvh_traverse.py``),
+  exact, the reference's correctness oracle.  It needs the scene's BVH and
+  raises ``ValueError`` without one.  Instanced meshes keep no BVH, so
+  under ``bvh`` they go to the port's ``auto`` engine, ``wave2``.
 - ``"sorted-pallas"``: octant + Morton ray sort, per-1024-ray-block BFS
   candidates, the stream kernel (``ops/pallas_traverse.py``).  Its per-block
   candidate union truncates on incoherent wavefronts: rays it may have cut
@@ -16,13 +20,16 @@ the ``RT_TRAVERSAL_MODE`` environment variable selects:
   (``ops/cluster_traverse.py``), a second orthogonal implementation for
   validation.
 - ``"null"``: diagnostics only, skips mesh traversal.
-- ``"wave"`` and ``"bvh"`` are valid names of the reference whose engines
-  are not ported yet; selecting one raises, since a chosen mode never
-  silently becomes another.
+- ``"wave"`` is a valid name of the reference whose engine is not ported
+  yet; selecting it raises, since a chosen mode never silently becomes
+  another.
 
 Every mode but wave2 runs closest hit on ``|t_cap|`` (same answer, no
 early exit) and returns no attributes, so the shading frame is gathered
-from the triangle tables.  Two-level instancing waits (ROADMAP).
+from the triangle tables.  Instances are traced one at a time: the ray is
+moved into the instance's object space and traced through its shared mesh
+(``_instance_local_ray``), and the hits fold into one record with the
+instance id.
 """
 
 from __future__ import annotations
@@ -32,9 +39,9 @@ import os
 import torch
 
 from ..math.sampling import build_onb
-from ..math.vec import Vec3, normalize
-from ..scene.types import SceneData
-from .bvh_traverse import eval_tri_frame
+from ..math.vec import Vec3, normalize, where as vwhere
+from ..scene.types import Rot3, SceneData
+from .bvh_traverse import bvh_any_hit, bvh_closest_hit, eval_tri_frame
 from .cluster_traverse import cluster_any_hit, cluster_closest_hit
 from .intersect import BIG, Hits, PrimFrame, eval_prim_frame, intersect_prims, merge_frames
 from .pallas_traverse import pallas_sorted_any_hit, pallas_sorted_closest_hit
@@ -42,7 +49,7 @@ from .wave2_traverse import wave2_any_hit, wave2_closest_hit
 
 _MODE = "auto"
 _VALID_MODES = ("auto", "wave2", "wave", "sorted-pallas", "cluster", "bvh", "null")
-_NOT_PORTED = ("wave", "bvh")
+_NOT_PORTED = ("wave",)
 
 
 def set_traversal_mode(mode: str) -> None:
@@ -57,9 +64,10 @@ def get_traversal_mode() -> str:
     return _MODE
 
 
-def _resolved_mode() -> str:
+def _resolved_mode(scene: SceneData = None) -> str:
     """The mode in force: the environment override goes through the same
-    validation as ``set_traversal_mode``, so a typo raises."""
+    validation as ``set_traversal_mode``, so a typo raises.  With a scene,
+    ``bvh`` on a scene without a BVH raises too."""
     mode = _MODE
     env = os.environ.get("RT_TRAVERSAL_MODE")
     if env:
@@ -68,17 +76,23 @@ def _resolved_mode() -> str:
         mode = env
     if mode in _NOT_PORTED:
         raise NotImplementedError(
-            f"traversal mode {mode!r} is not ported yet (ROADMAP queue 0); "
-            "use 'wave2', 'sorted-pallas' or 'cluster'"
+            f"traversal mode {mode!r} is not ported yet (ROADMAP queue 1); "
+            "use 'wave2', 'bvh', 'sorted-pallas' or 'cluster'"
+        )
+    if mode == "bvh" and scene is not None and scene.bvh is None:
+        # a user selecting the exact oracle must not silently get another path
+        raise ValueError(
+            "traversal mode 'bvh' requested but the scene has no skip-link BVH "
+            "(it holds no baked triangle mesh); use 'wave2'"
         )
     return "wave2" if mode == "auto" else mode
 
 
-def _cs_closest(mode, clusters, origin: Vec3, direction: Vec3, t_cap):
-    """Closest hit over ONE cluster set by the selected backend.  ``t_cap``
-    may be sign-encoded per ray (negative = any-hit lane with limit
-    |t_cap|): wave2 honours the early exit per lane, the others trace
-    |t_cap|.  Returns (t, tri_id, u, v, overflow, attr or None)."""
+def _cs_closest(mode, clusters, bvh, tris, origin: Vec3, direction: Vec3, t_cap):
+    """Closest hit over ONE mesh by the selected backend.  ``t_cap`` may be
+    sign-encoded per ray (negative = any-hit lane with limit |t_cap|):
+    wave2 honours the early exit per lane, the others trace |t_cap|.
+    Returns (t, tri_id, u, v, overflow, attr or None)."""
     if mode == "wave2":
         return wave2_closest_hit(clusters, origin, direction, t_cap, with_attrs=True)
     t_cap = torch.abs(t_cap)
@@ -86,21 +100,41 @@ def _cs_closest(mode, clusters, origin: Vec3, direction: Vec3, t_cap):
         z = torch.zeros_like(origin.x)
         return (torch.full_like(z, BIG), torch.full_like(z, -1, dtype=torch.int32), z, z,
                 torch.zeros_like(z, dtype=torch.bool), None)
+    if mode == "bvh":
+        t, tri, u, v = bvh_closest_hit(bvh, tris, origin, direction, t_cap)
+        return t, tri, u, v, torch.zeros_like(origin.x, dtype=torch.bool), None
     if mode == "sorted-pallas":
         return pallas_sorted_closest_hit(clusters, origin, direction, t_cap) + (None,)
     return cluster_closest_hit(clusters, origin, direction, t_cap) + (None,)
 
 
-def _cs_occluded(mode, clusters, origin: Vec3, direction: Vec3, t_max):
-    """Any-hit over ONE cluster set. Returns (occluded, overflow)."""
+def _cs_occluded(mode, clusters, bvh, tris, origin: Vec3, direction: Vec3, t_max):
+    """Any-hit over ONE mesh. Returns (occluded, overflow)."""
     if mode == "wave2":
         return wave2_any_hit(clusters, origin, direction, t_max)
+    z = torch.zeros_like(origin.x, dtype=torch.bool)
     if mode == "null":
-        z = torch.zeros_like(origin.x, dtype=torch.bool)
         return z, z
+    if mode == "bvh":
+        return bvh_any_hit(bvh, tris, origin, direction, t_max), z
     if mode == "sorted-pallas":
         return pallas_sorted_any_hit(clusters, origin, direction, t_max)
     return cluster_any_hit(clusters, origin, direction, t_max)
+
+
+def _instance_rot(scene: SceneData, i: int):
+    """Instance i's rotation (object -> world rows) and translation, as 0-d
+    tensors on the scene's device."""
+    inst = scene.instances
+    at = lambda v: Vec3(v.x[i], v.y[i], v.z[i])
+    return Rot3(at(inst.rot.r0), at(inst.rot.r1), at(inst.rot.r2)), at(inst.trans)
+
+
+def _instance_local_ray(scene: SceneData, i: int, origin: Vec3, direction: Vec3, time=None):
+    """World ray -> instance i's object space: the rigid inverse.  ``time``
+    stays None until motion blur is ported."""
+    rot, trans = _instance_rot(scene, i)
+    return rot.to_local(origin - trans), rot.to_local(direction)
 
 
 def scene_traverse(scene: SceneData, origin: Vec3, direction: Vec3, t_max=None, any_hit=None) -> Hits:
@@ -112,56 +146,107 @@ def scene_traverse(scene: SceneData, origin: Vec3, direction: Vec3, t_max=None, 
     dev = origin.x.device
     if t_max is None:
         t_max = torch.full(n, BIG, dtype=torch.float32, device=dev)
-    best_t, best_prim = intersect_prims(scene.prims, origin, direction, t_max)
-    best_tri = torch.full(n, -1, dtype=torch.int32, device=dev)
-    best_u = torch.zeros(n, dtype=torch.float32, device=dev)
-    best_v = torch.zeros_like(best_u)
+    t_p, pid = intersect_prims(scene.prims, origin, direction, t_max)
+    mode = _resolved_mode(scene)
+    z = torch.zeros(n, dtype=torch.float32, device=dev)
+    best = {"t": t_p, "prim": pid, "tri": torch.full(n, -1, dtype=torch.int32, device=dev), "u": z, "v": z,
+            "inst": torch.full(n, -1, dtype=torch.int32, device=dev), "attr": (z,) * 6, "have_attr": True}
     overflow = torch.zeros(n, dtype=torch.bool, device=dev)
-    attr = None
+
+    def fold(t_t, tid, tu, tv, inst_id, attr):
+        """Keep the closer hit per lane; attributes only while every mesh
+        returned them."""
+        closer = (t_t < best["t"]) & (tid >= 0)
+        best["t"] = torch.where(closer, t_t, best["t"])
+        best["prim"] = torch.where(closer, -1, best["prim"])
+        best["tri"] = torch.where(closer, tid, best["tri"])
+        best["u"] = torch.where(closer, tu, best["u"])
+        best["v"] = torch.where(closer, tv, best["v"])
+        best["inst"] = torch.where(closer, inst_id, best["inst"])
+        if attr is None or not best["have_attr"]:
+            best["have_attr"] = False
+        else:
+            best["attr"] = tuple(torch.where(closer, a, b) for a, b in zip(attr, best["attr"]))
+
+    def signed(cap):
+        return torch.where(any_hit, -cap, cap) if any_hit is not None else cap
 
     if scene.tris is not None and scene.clusters is not None:
-        cap = torch.minimum(best_t, t_max)
-        if any_hit is not None:
-            cap = torch.where(any_hit, -cap, cap)
-        t_t, tid, tu, tv, ovf, attr_t = _cs_closest(_resolved_mode(), scene.clusters, origin, direction, cap)
+        t_t, tid, tu, tv, ovf, attr = _cs_closest(mode, scene.clusters, scene.bvh, scene.tris, origin,
+                                                  direction, signed(torch.minimum(t_p, t_max)))
         overflow = overflow | ovf
-        closer = (t_t < best_t) & (tid >= 0)
-        best_t = torch.where(closer, t_t, best_t)
-        best_prim = torch.where(closer, -1, best_prim)
-        best_tri = torch.where(closer, tid, best_tri)
-        best_u = torch.where(closer, tu, best_u)
-        best_v = torch.where(closer, tv, best_v)
-        if attr_t is not None:
-            z = torch.zeros_like(best_u)
-            attr = tuple(torch.where(closer, a, z) for a in attr_t)
+        fold(t_t, tid, tu, tv, -1, attr)
+    if scene.instances is not None:
+        # two-level traversal: each instance's shared mesh, traced in its
+        # object space against the best t so far; any-hit lanes never past
+        # their t_max.  (The reference caps every lane by the best t alone,
+        # which is BIG on a lane nothing has hit yet: a shadow ray is then
+        # occluded by an instance BEHIND its light.  Closest-hit lanes keep
+        # the reference's cap, so the ray counters agree with it.)
+        inst_mode = "wave2" if mode == "bvh" else mode  # instanced meshes keep no BVH: the auto engine
+        for i, mid in enumerate(scene.instances.mesh_ids):
+            geom = scene.mesh_geoms[mid]
+            o_l, d_l = _instance_local_ray(scene, i, origin, direction)
+            cap = best["t"] if any_hit is None else torch.where(any_hit, torch.minimum(best["t"], t_max), best["t"])
+            t_t, tid, tu, tv, ovf, attr = _cs_closest(inst_mode, geom.clusters, None, geom.tris, o_l, d_l,
+                                                      signed(cap))
+            overflow = overflow | ovf
+            fold(t_t, tid, tu, tv, i, attr)
 
-    return Hits(t=best_t, prim_id=best_prim, tri_id=best_tri, u=best_u, v=best_v,
-                overflow=overflow, attr=attr)
+    has_mesh = (scene.tris is not None and scene.clusters is not None) or scene.instances is not None
+    return Hits(t=best["t"], prim_id=best["prim"], tri_id=best["tri"], u=best["u"], v=best["v"],
+                overflow=overflow, inst_id=best["inst"],
+                attr=best["attr"] if best["have_attr"] and has_mesh else None)
 
 
 def scene_hit_frame(scene: SceneData, hits: Hits, origin: Vec3, direction: Vec3) -> PrimFrame:
-    """Shading frame for an analytic-prim or triangle hit.  Triangle frames
-    come from the traversal's interpolated ``tri_attr`` channels when the
-    backend emitted them (wave2), else from a gather of the triangle tables."""
+    """Shading frame for any hit kind: analytic prim, baked triangle or
+    instanced triangle.  Triangle frames come from the traversal's
+    interpolated ``attr`` channels when every mesh's backend emitted them
+    (wave2; object-space normals of instanced hits are rotated to world
+    before normalizing), else from a gather of each triangle table."""
     frame = eval_prim_frame(scene.prims, hits.prim_id, origin, direction, hits.t)
-    if hits.attr is None:
-        if scene.tris is None:
-            return frame
-        return merge_frames(hits.tri_id >= 0, eval_tri_frame(scene.tris, hits, origin, direction), frame)
-    nx, ny, nz, tu, tv, matf = hits.attr
-    normal = normalize(Vec3(nx, ny, nz), eps=1e-20)
-    tangent, bitangent = build_onb(normal)
-    tri_frame = PrimFrame(
-        position=origin + direction * torch.clamp(hits.t, 0.0, 1e12),
-        normal=normal,
-        tangent=tangent,
-        bitangent=bitangent,
-        tex_u=tu,
-        tex_v=tv,
-        material_id=matf.to(torch.int32),
-        light_id=torch.full_like(hits.tri_id, -1),
-    )
-    return merge_frames(hits.tri_id >= 0, tri_frame, frame)
+    is_tri = hits.tri_id >= 0
+    inst = hits.inst_id if hits.inst_id is not None else torch.full_like(hits.tri_id, -1)
+
+    if hits.attr is not None:
+        nx, ny, nz, tu, tv, matf = hits.attr
+        nrm = Vec3(nx, ny, nz)
+        if scene.instances is not None:
+            for i in range(scene.instances.count):
+                rot, _ = _instance_rot(scene, i)
+                nrm = vwhere(inst == i, rot.to_world(nrm), nrm)
+        normal = normalize(nrm, eps=1e-20)
+        tangent, bitangent = build_onb(normal)
+        tri_frame = PrimFrame(
+            position=origin + direction * torch.clamp(hits.t, 0.0, 1e12),
+            normal=normal,
+            tangent=tangent,
+            bitangent=bitangent,
+            tex_u=tu,
+            tex_v=tv,
+            material_id=matf.to(torch.int32),
+            light_id=torch.full_like(hits.tri_id, -1),
+        )
+        return merge_frames(is_tri, tri_frame, frame)
+
+    def own(mask):
+        """The hits of one triangle table: tri ids of other tables index
+        other arrays, so their lanes read row 0 and are dropped by the merge."""
+        return hits._replace(tri_id=torch.where(mask, hits.tri_id, -1)), mask
+
+    if scene.tris is not None:
+        h, mask = own(is_tri & (inst < 0))
+        frame = merge_frames(mask, eval_tri_frame(scene.tris, h, origin, direction), frame)
+    if scene.instances is not None:
+        for i, mid in enumerate(scene.instances.mesh_ids):
+            h, mask = own(is_tri & (inst == i))
+            f_i = eval_tri_frame(scene.mesh_geoms[mid].tris, h, origin, direction)
+            rot, _ = _instance_rot(scene, i)
+            f_w = f_i._replace(normal=rot.to_world(f_i.normal), tangent=rot.to_world(f_i.tangent),
+                               bitangent=rot.to_world(f_i.bitangent))
+            frame = merge_frames(mask, f_w, frame)
+    return frame
 
 
 def scene_occluded(scene: SceneData, origin: Vec3, direction: Vec3, t_max):
@@ -171,8 +256,19 @@ def scene_occluded(scene: SceneData, origin: Vec3, direction: Vec3, t_max):
     t_p, _ = intersect_prims(scene.prims, origin, direction, t_max)
     occ = t_p < t_max
     overflow = torch.zeros(n, dtype=torch.bool, device=origin.x.device)
+    mode = _resolved_mode(scene)
     if scene.tris is not None and scene.clusters is not None:
-        mesh_occ, ovf = _cs_occluded(_resolved_mode(), scene.clusters, origin, direction, t_max)
+        mesh_occ, ovf = _cs_occluded(mode, scene.clusters, scene.bvh, scene.tris, origin, direction, t_max)
         occ = occ | mesh_occ
         overflow = overflow | ovf
+    if scene.instances is not None:
+        inst_mode = "wave2" if mode == "bvh" else mode
+        for i, mid in enumerate(scene.instances.mesh_ids):
+            geom = scene.mesh_geoms[mid]
+            o_l, d_l = _instance_local_ray(scene, i, origin, direction)
+            # already-occluded rays query with limit 0 (the early-out analogue)
+            lim = torch.where(occ, 0.0, t_max * torch.ones_like(origin.x))
+            mesh_occ, ovf = _cs_occluded(inst_mode, geom.clusters, None, geom.tris, o_l, d_l, lim)
+            occ = occ | mesh_occ
+            overflow = overflow | ovf
     return occ, overflow

@@ -1,8 +1,10 @@
 """Host-side scene construction: python objects -> SoA tensors on a device
 (port of ``raytracer_tpu/scene/build.py``).
 
-``SceneBuilder.build(device)`` takes the device explicitly.  Instances and
-decals wait (ROADMAP).
+``SceneBuilder.build(device)`` takes the device explicitly.  Baked meshes
+get their skip-link BVH and cluster set; a mesh registered with
+``add_mesh_geometry`` is stored once in object space and placed by rigid
+instances.  Decals wait (ROADMAP).
 """
 
 from __future__ import annotations
@@ -102,6 +104,26 @@ def _rot3(transforms: list[RigidTransform], device) -> T.Rot3:
     return T.Rot3(mk(0), mk(1), mk(2))
 
 
+def _mesh_tables(tri_v, tri_n, tri_uv, tri_mat, device):
+    """One mesh's device tables in BVH leaf order: (Triangles, BVHFlat,
+    ClusterSet, (v0, e1, e2) on the host)."""
+    from .bvh import build_bvh_over_triangles
+    from .clusters import build_clusters
+
+    (v0, e1, e2, nrm, uv, mat), bvh = build_bvh_over_triangles(tri_v, tri_n, tri_uv, tri_mat, device=device)
+    v3 = lambda a: Vec3(_f32(a[:, 0], device), _f32(a[:, 1], device), _f32(a[:, 2], device))
+    tris = T.Triangles(
+        v0=v3(v0), e1=v3(e1), e2=v3(e2),
+        n0=v3(nrm[:, 0]), n1=v3(nrm[:, 1]), n2=v3(nrm[:, 2]),
+        uv0_u=_f32(uv[:, 0, 0], device), uv0_v=_f32(uv[:, 0, 1], device),
+        uv1_u=_f32(uv[:, 1, 0], device), uv1_v=_f32(uv[:, 1, 1], device),
+        uv2_u=_f32(uv[:, 2, 0], device), uv2_v=_f32(uv[:, 2, 1], device),
+        material_id=_i32(mat, device),
+    )
+    clusters = build_clusters(v0, e1, e2, normals=nrm, uvs=uv, material_ids=mat, device=device)
+    return tris, bvh, clusters, (v0, e1, e2)
+
+
 class SceneBuilder:
     """Accumulates scene content then freezes it to a SceneData."""
 
@@ -114,6 +136,9 @@ class SceneBuilder:
         self._tri_n = []  # (n,3,3) vertex normals
         self._tri_uv = []  # (n,3,2)
         self._tri_mat = []  # (n,)
+        # shared object-space meshes and their instances (two-level structure)
+        self._mesh_geoms = []
+        self._mesh_instances = []
         self.textures = None  # a TextureAtlas on the build device, set by the loader
 
     # --- materials -------------------------------------------------------------
@@ -160,6 +185,29 @@ class SceneBuilder:
             np.asarray(uvs, np.float64)[indices] if uvs is not None else np.zeros((len(indices), 3, 2))
         )
         self._tri_mat.append(np.asarray(material_ids, np.int64))
+
+    def add_mesh_geometry(self, vertices, indices, normals, uvs, material_ids) -> int:
+        """Register a shared OBJECT-SPACE mesh; returns a mesh id for
+        :meth:`add_mesh_instance`.  The geometry is stored once however many
+        instances place it."""
+        self._mesh_geoms.append((
+            np.asarray(vertices, np.float64), np.asarray(indices, np.int64),
+            np.asarray(normals, np.float64),
+            np.asarray(uvs, np.float64) if uvs is not None else None,
+            np.asarray(material_ids, np.int64),
+        ))
+        return len(self._mesh_geoms) - 1
+
+    def add_mesh_instance(self, mesh_id: int, transform: RigidTransform, velocity=(0.0, 0.0, 0.0)) -> int:
+        """Place an instance of a registered mesh: a rigid transform, and a
+        linear velocity over the shutter (stored; motion blur waits)."""
+        if getattr(transform, "scale", 1.0) != 1.0:
+            raise ValueError(
+                "instances are rigid (rotation+translation); bake scaled "
+                "meshes with add_mesh or pre-scale the geometry"
+            )
+        self._mesh_instances.append((mesh_id, transform, tuple(velocity)))
+        return len(self._mesh_instances) - 1
 
     # --- lights ------------------------------------------------------------------
     def add_light(self, desc: LightDesc) -> int:
@@ -213,11 +261,13 @@ class SceneBuilder:
             uv_scale=_vec3([(p.uv_scale[0], p.uv_scale[1], 1.0) for p in prim_list], device),
         )
 
-        tris, clusters, tri_verts = self._build_tris(device)
+        tris, bvh, clusters, tri_verts = self._build_tris(device)
+        mesh_geoms, instances, inst_radii = self._build_instances(device)
         scene = T.SceneData(prims=prims, tris=tris, materials=materials,
                             lights=self._build_lights(device), clusters=clusters,
-                            textures=self.textures, env_dist=self._build_env_dist(device))
-        return scene, self._build_meta(prim_list, tri_verts)
+                            textures=self.textures, env_dist=self._build_env_dist(device),
+                            bvh=bvh, mesh_geoms=mesh_geoms, instances=instances)
+        return scene, self._build_meta(prim_list, tri_verts, inst_radii)
 
     def _build_env_dist(self, device):
         """2-D luminance x sin(theta) distribution over the background
@@ -241,31 +291,50 @@ class SceneBuilder:
         return make_distribution_2d(lum * np.sin(theta)[:, None], device=device)
 
     def _build_tris(self, device):
+        """The baked world-space triangles: (Triangles, BVHFlat, ClusterSet,
+        (v0, e1, e2) on the host), or Nones."""
         if not self._tri_v:
-            return None, None, None
-        from .bvh import build_bvh_over_triangles
-        from .clusters import build_clusters
-
-        v0, e1, e2, nrm, uv, mat = build_bvh_over_triangles(
+            return None, None, None, None
+        return _mesh_tables(
             np.concatenate(self._tri_v, 0).astype(np.float32),
             np.concatenate(self._tri_n, 0).astype(np.float32),
             np.concatenate(self._tri_uv, 0).astype(np.float32),
             np.concatenate(self._tri_mat, 0).astype(np.int32),
+            device,
         )
-        v3 = lambda a: Vec3(_f32(a[:, 0], device), _f32(a[:, 1], device), _f32(a[:, 2], device))
-        tris = T.Triangles(
-            v0=v3(v0), e1=v3(e1), e2=v3(e2),
-            n0=v3(nrm[:, 0]), n1=v3(nrm[:, 1]), n2=v3(nrm[:, 2]),
-            uv0_u=_f32(uv[:, 0, 0], device), uv0_v=_f32(uv[:, 0, 1], device),
-            uv1_u=_f32(uv[:, 1, 0], device), uv1_v=_f32(uv[:, 1, 1], device),
-            uv2_u=_f32(uv[:, 2, 0], device), uv2_v=_f32(uv[:, 2, 1], device),
-            material_id=_i32(mat, device),
+
+    def _build_instances(self, device):
+        """The shared object-space meshes (each with its own triangle table
+        and cluster set; its BVH is built for the leaf order and dropped, as
+        in the reference) and the instance table.  Returns (mesh_geoms,
+        instances, the instances' bounding radii about the origin)."""
+        if not self._mesh_instances:
+            return (), None, []
+        geoms, obj_radius = [], []
+        for verts, idxs, norms, uvs, mats in self._mesh_geoms:
+            tri_uv = uvs[idxs] if uvs is not None else np.zeros((len(idxs), 3, 2))
+            tris, _bvh, clusters, (v0, e1, e2) = _mesh_tables(
+                verts[idxs].astype(np.float32), norms[idxs].astype(np.float32),
+                tri_uv.astype(np.float32), mats.astype(np.int32), device)
+            geoms.append(T.MeshGeom(tris=tris, clusters=clusters))
+            obj_radius.append(max(float(np.max(np.linalg.norm(v, axis=1))) for v in (v0, v0 + e1, v0 + e2)))
+        insts = self._mesh_instances
+        instances = T.Instances(
+            rot=_rot3([t for _, t, _ in insts], device),
+            trans=_vec3([tuple(t.translation) for _, t, _ in insts], device),
+            vel=_vec3([v for _, _, v in insts], device),
+            mesh_ids=tuple(int(m) for m, _, _ in insts),
         )
-        clusters = build_clusters(v0, e1, e2, normals=nrm, uvs=uv, material_ids=mat, device=device)
-        return tris, clusters, (v0, e1, e2)
+        # each instance's bounding sphere about the origin: |translation| +
+        # the object-space radius (rotation-free bound), in float32 as the
+        # reference computes it
+        trans = np.asarray([t.translation for _, t, _ in insts], np.float32)
+        ic = np.sqrt(trans[:, 0] ** 2 + trans[:, 1] ** 2 + trans[:, 2] ** 2)
+        radii = [ic[i] + obj_radius[m] for i, (m, _, _) in enumerate(insts)]
+        return tuple(geoms), instances, radii
 
     @staticmethod
-    def _scene_radius(prim_list, tri_verts) -> float:
+    def _scene_radius(prim_list, tri_verts, inst_radii=()) -> float:
         """World bounding-sphere radius about the origin (replaces the
         reference renderer's hardcoded 30); conservative norm bounds."""
         r = 0.0
@@ -288,11 +357,13 @@ class SceneBuilder:
             v0, e1, e2 = tri_verts
             for v in (v0, v0 + e1, v0 + e2):
                 acc(np.linalg.norm(v, axis=1))
+        for radius in inst_radii:
+            acc(np.asarray([radius]))
         if r <= 0.0:
             return 30.0
         return float(max(1.05 * r, 1e-3))
 
-    def _build_meta(self, prim_list, tri_verts) -> T.SceneMeta:
+    def _build_meta(self, prim_list, tri_verts, inst_radii=()) -> T.SceneMeta:
         ls = self.lights
         kinds = tuple(l.kind for l in ls) if ls else (T.LIGHT_POINT,)
         deltas = tuple(l.flags()[0] for l in ls) if ls else (True,)
@@ -302,7 +373,7 @@ class SceneBuilder:
             light_is_delta=deltas,
             n_lights=len(ls),
             background_light_index=bg,
-            scene_radius=self._scene_radius(prim_list, tri_verts),
+            scene_radius=self._scene_radius(prim_list, tri_verts, inst_radii),
         )
 
     def _build_lights(self, device) -> T.Lights:

@@ -3,10 +3,10 @@
 ``scene_from_numpy`` takes the reference's ``SceneData`` / ``ClusterSet``
 / ``Camera`` / ``SceneMeta`` (or any NamedTuple of them) whose array leaves
 were mapped to numpy, and builds the port's type of the same name from the
-fields the port keeps (the texture atlas and the environment map's
-distribution included).  Fields the port does not hold yet (decals,
-instances) must be empty: a scene that uses them raises instead of losing
-them.  This lets a test run one module of each
+fields the port keeps (the texture atlas, the environment map's
+distribution, the skip-link BVH, shared meshes and instances included).
+Fields the port does not hold yet (decals, motion blur, bokeh shapes) must
+be empty or off: a scene that uses them raises instead of losing them.  This lets a test run one module of each
 package on bit-identical data.
 """
 
@@ -26,11 +26,11 @@ from .clusters import ClusterSet
 _PORT_TYPES = {
     cls.__name__: cls
     for cls in (T.SceneData, T.Primitives, T.Triangles, T.Materials, T.Lights,
-                T.Rot3, T.Camera, T.SceneMeta, T.TextureAtlas, Distribution, Distribution2D,
-                Vec3, ClusterSet)
+                T.Rot3, T.Camera, T.SceneMeta, T.TextureAtlas, T.BVHFlat, T.MeshGeom, T.Instances,
+                Distribution, Distribution2D, Vec3, ClusterSet)
 }
 # reference fields the port does not hold yet: they must be empty / off
-_WAITING = ("decals", "instances", "mesh_geoms", "enable_motion_blur", "bokeh_shape")
+_WAITING = ("decals", "enable_motion_blur", "bokeh_shape")
 
 
 def _field_names(cls) -> tuple:

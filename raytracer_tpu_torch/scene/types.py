@@ -3,9 +3,9 @@ tensors (port of ``raytracer_tpu/scene/types.py``).
 
 Field names follow the reference so ``scene/convert.py`` can carry a JAX
 scene across by name.  The port keeps the fields the MIS path tracer
-reads on analytic prims and baked triangle meshes, with textures and the
-environment-map distribution; decals, instances, motion blur and spectral
-dispersion wait (ROADMAP).
+reads on analytic prims, baked triangle meshes with their skip-link BVH and
+instanced meshes, with textures and the environment-map distribution;
+decals, motion blur and spectral dispersion wait (ROADMAP).
 """
 
 from __future__ import annotations
@@ -114,6 +114,30 @@ class Triangles(NamedTuple):
         return self.material_id.shape[0]
 
 
+class BVHFlat(NamedTuple):
+    """Flattened binary BVH, pre-threaded per ray-direction octant with
+    skip links: ``hit`` (next node when the ray hits the node's box: the
+    octant's near child) and ``miss`` (next node in that octant's
+    depth-first order).  A ray's walk state is one int32.  Every leaf owns
+    exactly ``LEAF_SIZE`` triangle slots, padded with degenerate triangles
+    that cannot be hit.  Int lanes of ``packed_nodes`` and ``leaf_geom``
+    are float32 bit patterns, read with ``.view(torch.int32)``."""
+
+    nodes_box: torch.Tensor  # (M, 8) f32: min.xyz, max.xyz, 0, 0
+    node_first_tri: torch.Tensor  # (M,) int32: leaf -> first padded-tri slot; inner -> -1
+    hit_link: torch.Tensor  # (8, M) int32 per-octant next-on-hit (-1 = done)
+    miss_link: torch.Tensor  # (8, M) int32 per-octant next-on-miss (-1 = done)
+    tri_geom: torch.Tensor  # (Tpad, 9) f32: v0, e1, e2 per padded leaf slot
+    tri_id: torch.Tensor  # (Tpad,) int32: triangle index in leaf order, -1 = pad
+    # one row per (octant, node): [bmin(3), bmax(3), leaf_row | -1, hit, miss]
+    packed_nodes: torch.Tensor  # (8*M, 9) f32 (lanes 6..8 int32 bit patterns)
+    leaf_geom: torch.Tensor  # (L, 40) f32: 4 tris x (v0, e1, e2) + 4 int32 ids
+
+    @property
+    def num_nodes(self) -> int:
+        return self.node_first_tri.shape[0]
+
+
 class Materials(NamedTuple):
     """PBR material table, SoA over M."""
 
@@ -203,6 +227,32 @@ class TextureAtlas(NamedTuple):
     max_octaves: int = 8
 
 
+class MeshGeom(NamedTuple):
+    """One shared OBJECT-SPACE mesh: geometry stored once, referenced by any
+    number of instances."""
+
+    tris: Triangles  # object-space triangle table
+    clusters: object  # ClusterSet built over the object-space triangles
+
+
+@dataclasses.dataclass(frozen=True)
+class Instances:
+    """Instance table: per-instance rigid transform (object -> world) and
+    linear velocity over the shutter.  Rays are transformed into each
+    instance's object space and traced through its shared mesh;
+    ``mesh_ids`` is a plain tuple, known on the host.  ``vel`` is stored
+    and unused until motion blur is ported."""
+
+    rot: Rot3  # object->world rotation rows, (I,) components
+    trans: Vec3  # (I,)
+    vel: Vec3  # (I,) translation over the shutter interval
+    mesh_ids: tuple = ()
+
+    @property
+    def count(self) -> int:
+        return len(self.mesh_ids)
+
+
 class SceneData(NamedTuple):
     """Complete device-side scene."""
 
@@ -215,6 +265,11 @@ class SceneData(NamedTuple):
     # Optional[Distribution2D] over the background light's lat-long bitmap
     # (luminance x sin(theta)): NEE importance-samples it
     env_dist: object = None
+    bvh: Optional[BVHFlat] = None  # skip-link BVH over ``tris`` (the ``bvh`` mode)
+    # shared object-space meshes and their instances (two-level structure);
+    # baked world-space ``tris`` and instanced meshes can coexist
+    mesh_geoms: tuple = ()
+    instances: Optional[Instances] = None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -145,15 +145,29 @@ def test_traversal_mode_selection(restore_modes, monkeypatch):
 
 @pytest.mark.parametrize("mode", ["wave", "bvh"])
 @pytest.mark.parametrize("how", ["set", "env"])
-def test_unported_modes_raise_and_never_become_another(restore_modes, monkeypatch, tmp_path, mode, how):
+def test_wave_raises_and_bvh_walks_and_neither_becomes_another(restore_modes, monkeypatch, tmp_path, mode, how):
+    """``wave`` (not ported) raises; ``bvh`` renders through the skip-link
+    walk and never reaches wave2's engine; set or through the environment."""
     _, got = _bench_mesh(tmp_path, monkeypatch)
     if how == "set":
         traverse.set_traversal_mode(mode)  # a valid name of the reference
     else:
         monkeypatch.setenv("RT_TRAVERSAL_MODE", mode)
     pv = Viewport(*got, ViewportParams(8, 8, seed=0), RenderParams(max_depth=2, mis=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pv.render(1)
+    if mode == "wave":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            pv.render(1)
+        return
+    calls = {"bvh_closest_hit": 0, "wave2_closest_hit": 0, "mt_chunks": 0}
+    count = lambda name, real: lambda *a, **k: (calls.__setitem__(name, calls[name] + 1), real(*a, **k))[1]
+    from raytracer_tpu_torch.ops import wave2_traverse
+
+    with mock.patch.object(traverse, "bvh_closest_hit", count("bvh_closest_hit", traverse.bvh_closest_hit)), \
+            mock.patch.object(traverse, "wave2_closest_hit", count("wave2_closest_hit", traverse.wave2_closest_hit)), \
+            mock.patch.object(wave2_traverse, "mt_chunks", count("mt_chunks", wave2_traverse.mt_chunks)):
+        rad = pv.render(1).radiance()
+    assert calls["bvh_closest_hit"] > 0 and calls["wave2_closest_hit"] == calls["mt_chunks"] == 0, calls
+    assert np.isfinite(rad).all() and rad.mean() > 0
 
 
 def test_each_mode_reaches_its_own_engine(restore_modes, tmp_path, monkeypatch):
@@ -161,8 +175,8 @@ def test_each_mode_reaches_its_own_engine(restore_modes, tmp_path, monkeypatch):
     own engine and to no other."""
     _, got = _bench_mesh(tmp_path, monkeypatch)
     engines = {"wave2": "wave2_closest_hit", "sorted-pallas": "pallas_sorted_closest_hit",
-               "cluster": "cluster_closest_hit"}
-    for mode in ("auto", "wave2", "sorted-pallas", "cluster", "null"):
+               "cluster": "cluster_closest_hit", "bvh": "bvh_closest_hit"}
+    for mode in ("auto", "wave2", "sorted-pallas", "cluster", "bvh", "null"):
         calls = {name: 0 for name in engines.values()}
         with mock.patch.multiple(traverse, **{
             name: (lambda real, name: lambda *a, **k: (calls.__setitem__(name, calls[name] + 1), real(*a, **k))[1])(
@@ -191,12 +205,13 @@ def test_null_mode_skips_the_mesh(restore_modes, tmp_path, monkeypatch):
     assert (traverse.scene_traverse(scene, o, d).tri_id >= 0).all()  # straight down onto the heightfield
 
 
-@pytest.mark.parametrize("mode", ["sorted-pallas", "cluster"])
+@pytest.mark.parametrize("mode", ["sorted-pallas", "cluster", "bvh"])
 def test_viewport_matches_reference_under_mode(restore_modes, tmp_path, monkeypatch, mode):
     """32^2, depth 6, MIS render of the 2k-triangle mesh scene with both
     packages in the same traversal mode (the JAX package's stream kernel in
-    Pallas interpret mode).  Same tolerances as the default-mode render;
-    the overflow counters of the two packages must be equal, not zero."""
+    Pallas interpret mode; under ``bvh`` both run the same skip-link walk).
+    Same tolerances as the default-mode render; the overflow counters of the
+    two packages must be equal, not zero."""
     ref, got = _bench_mesh(tmp_path, monkeypatch)
     jax.clear_caches()
     ref_traverse.set_traversal_mode(mode)

@@ -41,10 +41,13 @@ def to_port(obj):
 
 
 def assert_same(a, b, path="scene"):
-    """Bit equality of two port-side structures (tensors, tuples, scalars)."""
+    """Bit equality of two port-side structures (tensors, tuples, scalars).
+    float32 tensors compare as their bit patterns: the BVH's int lanes are
+    stored in them and read as NaN where they hold -1."""
     if torch.is_tensor(a):
         assert torch.is_tensor(b) and a.dtype == b.dtype and a.shape == b.shape, path
-        assert torch.equal(a, b), path
+        bits = (lambda x: x.view(torch.int32)) if a.dtype == torch.float32 else (lambda x: x)
+        assert torch.equal(bits(a), bits(b)), path
     elif dataclasses.is_dataclass(a):
         for f in dataclasses.fields(a):
             assert_same(getattr(a, f.name), getattr(b, f.name), f"{path}.{f.name}")
@@ -112,9 +115,10 @@ def test_load_bench_scene_bit_equal(bench_dir, n_tris):
 
 
 def test_loader_refuses_what_waits(tmp_path):
-    """Instancing and csg still raise; a texture key no longer does: a file
-    that is not there becomes a white placeholder with a warning, or raises
-    under ``strict``."""
+    """csg still raises; a texture key no longer does: a file that is not
+    there becomes a white placeholder with a warning, or raises under
+    ``strict``.  A mesh placed twice no longer raises either: it loads as one
+    shared geometry and two instances."""
     import json
 
     p = tmp_path / "tex.json"
@@ -129,8 +133,10 @@ def test_loader_refuses_what_waits(tmp_path):
     obj.write_text("v 0 0 0\nv 1 0 0\nv 0 1 0\nf 1 2 3\n")
     p.write_text(json.dumps({"objects": [{"type": "mesh", "path": str(obj)},
                                          {"type": "mesh", "path": str(obj)}]}))
-    with pytest.raises(SceneLoadError, match="instancing"):
-        load_scene(str(p), device="cpu")
+    scene, _, _ = load_scene(str(p), device="cpu")
+    assert scene.tris is None and scene.bvh is None
+    assert len(scene.mesh_geoms) == 1 and scene.mesh_geoms[0].tris.count == 1
+    assert scene.instances.count == 2 and scene.instances.mesh_ids == (0, 0)
     p.write_text(json.dumps({"objects": [{"type": "csg"}]}))
     with pytest.raises(SceneLoadError, match="csg"):
         load_scene(str(p), device="cpu")

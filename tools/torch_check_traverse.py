@@ -1,13 +1,14 @@
-"""Correctness and timing checks of the PyTorch/CUDA port's block-candidate
-traversal (counterpart of ``tools/check_pallas.py`` and of the ``cluster``,
-``pallas``, ``sorted`` and ``wave2`` rows of ``tools/traversal_bench.py``).
+"""Correctness and timing checks of the PyTorch/CUDA port's traversal
+kernels (counterpart of ``tools/check_pallas.py`` and of the ``cluster``,
+``pallas``, ``sorted``, ``wave2`` and ``bvh`` rows of
+``tools/traversal_bench.py``).
 
     python tools/torch_check_traverse.py [n_tris] [n_rays]
 
 Runs on the CUDA device when there is one (the kernels), else on the CPU at
 a small size (the kernels' plain versions).  Imports torch, numpy and the
-port only.  ``chip_smoke.py`` calls ``check_kernels`` and ``check_engines``
-as two of its phases.
+port only.  ``chip_smoke.py`` calls ``check_kernels``, ``check_engines``,
+``check_bvh_walk`` and ``bvh_against_wave2`` in its phases.
 """
 
 from __future__ import annotations
@@ -39,6 +40,10 @@ MT_OPS = 55
 # one slab test of a ray against a box: 6 sub, 6 mul, 10 min/max, the clamp at
 # 0 and two compares
 BOX_OPS = 25
+# bytes of one skip-link table row: a packed node row of 9 floats, a leaf row
+# of 40 floats
+NODE_BYTES = 36
+LEAF_BYTES = 160
 
 
 def coherent_rays(n, spread=4.0):
@@ -608,6 +613,100 @@ def check_wave2_kernel(cs, dev, log=print, reps=20, plain_reps=5, n_rays=w2.SUBW
     return row
 
 
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def check_bvh_walk(bvh, o, d, any_tl, dev, log=print, label="window", reps=20):
+    """The skip-link walk's kernel (``bvh_walk``) against its plain twin on
+    the (n, 3) rays ``o``, ``d``, as closest-hit rays and as any-hit rays
+    of length ``any_tl``: every output and each ray's step count bit-equal,
+    or exit.  On the card the kernel is timed over ``reps`` calls (CUDA
+    events) and the twin once.  The twin's work gives the bound: by bytes,
+    each ray read and written once and each DISTINCT node and leaf row the
+    walk reads fetched once (the rays share most rows: the root is read by
+    every ray); by operations, a slab test per step and 4 Möller-Trumbore
+    tests per leaf visit.  The rows read per step are printed too, as the
+    traffic the caches serve (``l2_bytes``).  Returns {"closest": {...},
+    "any-hit": {...}}, each with ``ms``, ``plain_ms``, ``bound_ms``,
+    ``bound_by``, ``bound_no_fma_ms``, ``max_abs_err``, ``visits``,
+    ``leaf_visits``, ``rows``, ``l2_bytes``, ``max_steps`` and ``capped``
+    (rays that took the whole step budget)."""
+    from raytracer_tpu_torch.ops import bvh_traverse as bt
+
+    on_card = dev.type == "cuda"
+    ro, rd = vec(o, dev), vec(d, dev)
+    n = o.shape[0]
+    budget = bt.walk_budget(bvh.num_nodes)
+    out = {}
+    for any_hit, tl_value in ((False, BIGF), (True, any_tl)):
+        kind = "any-hit" if any_hit else "closest"
+        tm = torch.full((n,), tl_value, dtype=torch.float32, device=dev)
+        got = bt.bvh_walk(bvh, ro, rd, tm, any_hit, count_steps=True)
+        t0 = time.perf_counter()
+        want = bt.bvh_walk_reference(bvh, ro, rd, tm, any_hit, count_steps=True)
+        if on_card:
+            torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        fields = ("occluded", "steps") if any_hit else ("t", "tri", "u", "v", "steps")
+        pairs = [(getattr(got, f), getattr(want, f)) for f in fields]
+        err = 0.0 if any_hit else float((got.t - want.t).double().abs().max())
+        steps = want.steps
+        visits, leaf_visits = int(steps.sum()), int(want.leaf_visits.sum())
+        rows = (int(want.nodes_read.sum()), int(want.leaves_read.sum()))
+        hits = int(want.occluded.sum()) if any_hit else int((want.tri >= 0).sum())
+        log(f"bvh_walk vs twin [{label} {kind}]: {n} rays, {bvh.num_nodes} nodes, budget {budget} steps; "
+            f"{'occluded' if any_hit else 'hits'} {hits}; steps a ray mean {visits / n:.2f}, max {int(steps.max())}, "
+            f"rays at the budget {int((steps >= budget).sum())}; leaf visits a ray {leaf_visits / n:.2f}; "
+            f"distinct rows read: {rows[0]} of {bvh.packed_nodes.shape[0]} node rows, {rows[1]} of "
+            f"{bvh.leaf_geom.shape[0]} leaf rows; max_abs_diff {err}; mismatches "
+            f"{sum(int((_bits(g) != _bits(w)).sum()) for g, w in pairs)}")
+        check(all(torch.equal(_bits(g), _bits(w)) for g, w in pairs),
+              f"bvh_walk kernel equals its twin bit for bit, steps included ({label} {kind})", log)
+        ms = cuda_ms(lambda: bt.bvh_walk(bvh, ro, rd, tm, any_hit), reps=reps) if on_card else None
+        ray_bytes = n * 7 * 4 + n * (4 if any_hit else 16)
+        n_bytes = rows[0] * NODE_BYTES + rows[1] * LEAF_BYTES + ray_bytes
+        l2_bytes = visits * NODE_BYTES + leaf_visits * LEAF_BYTES + ray_bytes
+        n_ops = visits * BOX_OPS + leaf_visits * 4 * MT_OPS
+        b_ms, b_by = bound_ms(n_bytes, n_ops)
+        no_fma_ms = 2 * n_ops / H100_F32_OPS_PER_S * 1e3
+        log(f"time [{label} {kind}]: kernel {'not measured (no card)' if ms is None else f'{ms:.4f} ms'}, twin "
+            f"{plain_ms:.1f} ms (once), bound {b_ms:.6f} ms by {b_by} ({n_bytes} bytes, {n_ops} operations; "
+            f"without fused multiply-adds {no_fma_ms:.6f} ms); rows read step by step, the traffic the caches "
+            f"serve: {l2_bytes} bytes = {l2_bytes / H100_BYTES_PER_S * 1e3:.6f} ms at the memory rate")
+        out[kind] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, bound_no_fma_ms=no_fma_ms,
+                         max_abs_err=err, visits=visits, leaf_visits=leaf_visits, rows=rows, l2_bytes=l2_bytes,
+                         max_steps=int(steps.max()), capped=int((steps >= budget).sum()))
+    return out
+
+
+def bvh_against_wave2(bvh, cs, o, d, any_tl, dev, log=print, label="window"):
+    """The skip-link walk against the wave2 engine on the same rays and the
+    same triangles: tri ids equal except on exact ties (both t bit-equal),
+    t within 1e-6 relative where both hit, occlusion (rays of length
+    ``any_tl``) equal; or exit.  Returns the counts."""
+    from raytracer_tpu_torch.ops import bvh_traverse as bt
+
+    ro, rd = vec(o, dev), vec(d, dev)
+    n = o.shape[0]
+    walk = bt.bvh_walk(bvh, ro, rd, torch.full((n,), BIGF, device=dev), any_hit=False)
+    w_t, w_tri = w2.wave2_closest_hit(cs, ro, rd, BIGF)[:2]
+    occ = bt.bvh_walk(bvh, ro, rd, torch.full((n,), float(any_tl), device=dev), any_hit=True).occluded
+    w_occ = w2.wave2_any_hit(cs, ro, rd, any_tl)[0]
+    differ = walk.tri != w_tri
+    ties = differ & (_bits(walk.t) == _bits(w_t)) & (walk.tri >= 0) & (w_tri >= 0)
+    both = (walk.tri >= 0) & (w_tri >= 0)
+    rel = float(((walk.t - w_t).abs() / w_t.abs())[both].max()) if bool(both.any()) else 0.0
+    counts = {"rays": n, "hits": int((walk.tri >= 0).sum()), "tri_differ": int(differ.sum()),
+              "exact_ties": int(ties.sum()), "max_rel_t": rel, "occluded": int(occ.sum()),
+              "occluded_differ": int((occ != w_occ).sum())}
+    log(f"bvh vs wave2 [{label}]: {counts}")
+    check(torch.equal(differ, ties), f"bvh and wave2 tri ids equal but on exact ties ({label})", log)
+    check(rel <= 1e-6, f"bvh and wave2 t within 1e-6 relative ({label})", log)
+    check(torch.equal(occ, w_occ), f"bvh and wave2 occlusion equal ({label})", log)
+    return counts
+
+
 def _same(a, b):
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
@@ -665,6 +764,7 @@ def check_engines(cs, dev, log=print, n_rays=65_536, on_card=True):
 
 def main():
     import bench_mesh
+    from raytracer_tpu_torch.scene.bvh import build_bvh_over_triangles
     from raytracer_tpu_torch.scene.clusters import build_clusters
 
     on_card = torch.cuda.is_available()
@@ -681,6 +781,16 @@ def main():
         check_wave2_kernel(cs, dev, n_rays=n_rays)
         check_kernels(cs, dev, n_coherent=4 * n_rays, n_incoherent=n_rays)
     check_engines(cs, dev, n_rays=n_rays, on_card=on_card)
+    # the skip-link walk: its triangle ids are the leaf order, so the
+    # clusters for the comparison with wave2 are built over that order
+    zero = np.zeros_like(tri)
+    (v0, e1, e2, *_), bvh = build_bvh_over_triangles(tri, zero, zero[..., :2], np.zeros(len(tri), np.int32),
+                                                     device=dev)
+    leaf_cs = build_clusters(v0, e1, e2, device=dev)
+    rng = np.random.default_rng(11)
+    for label, (o, d) in (("coherent", coherent_rays(n_rays)), ("incoherent", incoherent_rays(n_rays, rng))):
+        check_bvh_walk(bvh, o, d, 4.0, dev, label=label)
+        bvh_against_wave2(bvh, leaf_cs, o, d, 4.0, dev, label=label)
 
 
 if __name__ == "__main__":

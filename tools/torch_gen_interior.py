@@ -22,6 +22,16 @@ NEE importance samples it.
 
 ``ensure_small_textured(bench_dir)`` is the same layout at a size a CPU
 renders in seconds: two meshes of a few hundred triangles.
+
+``ensure_interior_inst(bench_dir)`` writes ``interior_inst.json``: the hall
+of ``ensure_interior`` with the same shell meshes, lights, camera, materials
+and analytic props, but its 28 columns and 3 torus knots as instances.  One
+column at the origin is written once, as ``column.obj``, and placed by 28
+translation-only ``mesh`` objects at the baked hall's column positions; one
+knot is written once, as ``knot.obj``, and placed 3 times down the aisle.
+The loaders turn a mesh path used more than once into one shared geometry
+and its instances, so the world geometry is the baked hall's up to float32
+rounding.
 """
 
 from __future__ import annotations
@@ -197,9 +207,45 @@ def ensure_small_textured(bench_dir: str, force: bool = False) -> str:
     return json_path
 
 
+def column_positions() -> list:
+    """(x, z) of the 28 columns of ``gen_interior.ensure_interior``: two rows
+    of 14 down the hall."""
+    hx, hz = gen_interior.HX, gen_interior.HZ
+    return [(x, -hz + 3.0 + i * (2 * hz - 6.0) / 13.0) for i in range(14) for x in (-hx + 3.0, hx - 3.0)]
+
+
+KNOT_Z = (-18.0, 0.0, 18.0)
+
+
+def ensure_interior_inst(bench_dir: str = DEFAULT_DIR, force: bool = False) -> str:
+    """``interior_inst.json``: the interior with its columns and knots as 31
+    instances of two meshes (idempotent); returns the JSON path."""
+    with open(ensure_interior(bench_dir, force)) as f:
+        base = json.load(f)
+    json_path = os.path.join(bench_dir, "interior_inst.json")
+    if os.path.exists(json_path) and not force:
+        return json_path
+    col_v, col_f = gen_interior._column(np.random.default_rng(gen_interior.SEED))
+    column = os.path.join(bench_dir, "column.obj")
+    gen_interior._write_obj(column, "interior.mtl", [("marble", col_v, col_f, None)])
+    kv, kf = gen_interior._torus_knot()
+    knot = os.path.join(bench_dir, "knot.obj")
+    gen_interior._write_obj(knot, "interior.mtl", [("bronze", kv, kf, None)])
+    baked = {os.path.join(bench_dir, n) for n in ("columns.obj", "knots.obj")}
+    place = lambda path, x, z: {"type": "mesh", "path": path, "transform": {"translation": [x, 0.0, z]}}
+    shell = [o for o in base["objects"] if o["type"] == "mesh" and o["path"] not in baked]
+    doc = dict(base, objects=shell
+               + [place(column, x, z) for x, z in column_positions()]
+               + [place(knot, 0.0, z) for z in KNOT_Z]
+               + [o for o in base["objects"] if o["type"] != "mesh"])
+    with open(json_path, "w") as f:
+        json.dump(doc, f, indent=1)
+    return json_path
+
+
 if __name__ == "__main__":
     out = sys.argv[1] if len(sys.argv) > 1 else DEFAULT_DIR
-    for path in (ensure_interior(out), ensure_interior_tex(out)):
+    for path in (ensure_interior(out), ensure_interior_tex(out), ensure_interior_inst(out)):
         with open(path) as f:
             doc = json.load(f)
         print(f"{path}: {len(doc['objects'])} objects, {len(doc.get('textures', []))} textures, "
