@@ -102,6 +102,27 @@ Phases (any failure exits non-zero before the last line):
     timed passes), overflow 0, one profiled pass; the mean radiance within 1%
     of the baked hall's at the same seed and passes; then one timed pass
     under bvh, where the shell launches bvh_walk and the instances wave2_mt.
+16. reverse-mode gradients (tools/torch_check_gradients.py): (a) the
+    gradients of the scene of tests/test_gradients.py (32^2, depth 4, MIS)
+    with respect to the material tables, the light colours, the camera
+    origin and a yaw, on the card against the CPU port, element by element
+    (the camera's per pixel), within rtol 2e-4, atol 1e-6: all of them
+    against its float64 run, the tables and light colours against its
+    float32 run too;
+    then interior800k_fwd_bwd, bench.py::bench_backward's step on the hall
+    of phase 12: 256^2, depth 4, MIS, pass 0, the loss mean(r + g + b) and
+    its gradients with respect to base_color, emission and roughness, under
+    wave2 (1 warm-up + 3 timed calls, each ending on a host copy of one
+    gradient entry): mrays_per_sec_interior800k_fwd_bwd (the forward's
+    rays a second), the forward alone, peak memory, the bytes autograd
+    saves, wave2_mt launches a call, one profiled call; the same step under
+    bvh, its gradients equal to wave2's (rtol 2e-4, atol 1e-6); (b) central
+    differences of one emission and one light-colour entry on the hall at
+    64^2; (c) every gradient finite and some base colour's non-zero; (d)
+    train_step gradient descent on base_color at 128^2 lowers the loss;
+    the wave engine against wave2 on the camera and bounce windows of
+    mesh200k and of the hall: tri ids equal but on exact ties, t bit-equal
+    where they agree, occlusion equal, both timed.
 
 Every line goes to raytracer_tpu_torch/_build/chip_smoke.log too (truncated
 at the start of a run), since the tail of the output may be cut.  The last
@@ -109,7 +130,8 @@ lines are a summary: one line per driven render (Mray/s, ms a pass, rays,
 shadow rays, kernel launches, overflow, peak memory), the nvidia-smi line,
 the kernel table as one JSON line (the wave2_mt row's top-level numbers are
 the 200k mesh's window, the bvh_walk row's the 200k mesh's bounce window;
-each ``by_path`` entry gives a driven path's launches and its own windows),
+each ``by_path`` entry gives a driven path's launches and its own windows,
+or, with ``windows_of``, the path whose scene and windows it shares),
 and last {"ok": true, "device": {...}}.  Scene files are written under
 raytracer_tpu_torch/_build/.  No phase imports PIL.
 """
@@ -130,6 +152,7 @@ sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 import bench_mesh  # noqa: E402  (numpy-only scene generator)
+import torch_check_gradients as tcg  # noqa: E402
 import torch_check_textures as tctex  # noqa: E402
 import torch_check_traverse as tct  # noqa: E402
 import torch_gen_interior  # noqa: E402
@@ -218,16 +241,16 @@ def timed_render(vp, passes, smi, label):
     return dt, rays, shadow, overflow, radiance
 
 
-def profiled_pass(vp, label, top=8, named=()):
-    """One pass under torch.profiler: device kernel time in total and by
-    kernel name (the ``top`` largest, and those whose name holds one of
-    ``named``), beside the pass's wall time."""
+def profiled(run, label, top=8, named=()):
+    """``run()`` (one pass, one step) under torch.profiler: device kernel
+    time in total and by kernel name (the ``top`` largest, and those whose
+    name holds one of ``named``), beside its wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        vp.render(1)
+        run()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     from torch.autograd import DeviceType
@@ -242,7 +265,7 @@ def profiled_pass(vp, label, top=8, named=()):
             ms, count = by_name.get(e.name(), (0.0, 0))
             by_name[e.name()] = (ms + e.duration_ns() / 1e6, count + 1)
     total = sum(ms for ms, _ in by_name.values())
-    log(f"{label} profiled pass: wall {wall * 1e3:.1f} ms, device kernel time {total:.1f} ms, "
+    log(f"{label} profiled: wall {wall * 1e3:.1f} ms, device kernel time {total:.1f} ms, "
         f"{sum(count for _, count in by_name.values())} device events (trace read in "
         f"{time.perf_counter() - t0 - wall:.1f} s)")
     ranked = sorted(by_name.items(), key=lambda item: item[1][0], reverse=True)
@@ -301,6 +324,15 @@ def camera_window(cam, dev):
     return torch.stack(tuple(rays.origin), 1), torch.stack(tuple(rays.dir), 1)
 
 
+def bounce_window(o, d, t, hit, dev):
+    """Bounce rays that leave the hit points of the rays ``o``, ``d`` (hit
+    at ``t`` where ``hit``; the others keep their origin) in seeded random
+    directions."""
+    bo = torch.where(hit[:, None], o + d * (t * (1.0 - 1e-4))[:, None], o)
+    bd = np.random.default_rng(12).normal(size=(o.shape[0], 3)).astype(np.float32)
+    return bo, torch.as_tensor(bd / np.linalg.norm(bd, axis=1, keepdims=True), device=dev)
+
+
 def cluster_windows(cs, o, d, reach, dev, label):
     """The wave2_mt kernel and the wave2 engine held against the twin on the
     cluster set ``cs``, with two windows of the driven path: the camera rays
@@ -310,10 +342,7 @@ def cluster_windows(cs, o, d, reach, dev, label):
     numbers}."""
     t, tri = engine_agrees(cs, o, d, reach, dev, f"{label} camera")[:2]
     windows = {"camera": tct.check_wave2_window(cs, o, d, reach, dev, log, label=f"{label} camera window")}
-    hit = (tri >= 0)[:, None]
-    bo = torch.where(hit, o + d * (t * (1.0 - 1e-4))[:, None], o)
-    bd = np.random.default_rng(12).normal(size=(o.shape[0], 3)).astype(np.float32)
-    bd = torch.as_tensor(bd / np.linalg.norm(bd, axis=1, keepdims=True), device=dev)
+    bo, bd = bounce_window(o, d, t, tri >= 0, dev)
     engine_agrees(cs, bo, bd, reach, dev, f"{label} bounce")
     windows["bounce"] = tct.check_wave2_window(cs, bo, bd, reach, dev, log, label=f"{label} bounce window")
     return windows
@@ -357,7 +386,7 @@ def interior_render(path, dev, smi, label, textured):
     check(launches > 0, f"the {label} render launched the wave2_mt kernel")
     check(overflow == 0, f"{label}: traversal overflow is 0")
     check(bool(np.isfinite(radiance).all()) and radiance.mean() > 0, f"{label}: radiance finite with non-zero mean")
-    profiled_pass(vp, f"{label} [wave2]", named=("wave2_mt",))
+    profiled(lambda: vp.render(1), f"{label} [wave2] pass", named=("wave2_mt",))
     return vp, {"launches": launches, "windows": windows, "mean": float(radiance.mean())}
 
 
@@ -372,9 +401,7 @@ def bvh_windows(scene, meta, cam, dev, label):
     o, d = camera_window(cam, dev)
     reach = float(meta.scene_radius)
     first = bt.bvh_walk(scene.bvh, vec(o, dev), vec(d, dev), torch.full((o.shape[0],), 3.0e38, device=dev), False)
-    bo = torch.where((first.tri >= 0)[:, None], o + d * (first.t * (1.0 - 1e-4))[:, None], o)
-    bd = np.random.default_rng(12).normal(size=(o.shape[0], 3)).astype(np.float32)
-    bd = torch.as_tensor(bd / np.linalg.norm(bd, axis=1, keepdims=True), device=dev)
+    bo, bd = bounce_window(o, d, first.t, first.tri >= 0, dev)
     out = {}
     for window, (wo, wd) in (("camera", (o, d)), ("bounce", (bo, bd))):
         out[window] = tct.check_bvh_walk(scene.bvh, wo, wd, reach, dev, log, label=f"{label} {window} window")
@@ -479,7 +506,7 @@ def instanced_hall(baked, dev, smi):
     launches = w2.mt_chunks.launches
     check(launches > 0 and overflow == 0, "interior800k_inst_mis: wave2_mt launched, overflow 0")
     check(bool(np.isfinite(radiance).all()) and radiance.mean() > 0, "interior800k_inst_mis: radiance finite, non-zero")
-    device_ms = profiled_pass(vp, "interior800k_inst_mis [wave2]", named=("wave2_mt",))
+    device_ms = profiled(lambda: vp.render(1), "interior800k_inst_mis [wave2] pass", named=("wave2_mt",))
     log(f"interior800k_inst_mis [wave2]: wave2_mt launches {launches} in 3 passes; device time "
         f"{device_ms:.1f} ms of an unprofiled pass's {dt / 2 * 1e3:.1f} ms: idle {1 - device_ms / (dt / 2 * 1e3):.3f}")
     ref = Viewport(baked.scene, baked.meta, baked.cam, ViewportParams(512, 512, seed=0),
@@ -500,6 +527,64 @@ def instanced_hall(baked, dev, smi):
         f"{both[0]} (the shell), wave2_mt launches {both[1]} (the instances)")
     check(both[0] > 0 and both[1] > 0, "under bvh the shell launched bvh_walk and the instances wave2_mt")
     return (launches, windows), (both, walk_windows)
+
+
+def fwd_bwd_phase(hall, mesh, dev, smi):
+    """Phase 16: reverse-mode gradients (tools/torch_check_gradients.py).
+    The test scene's gradients on the card against the CPU; the hall's
+    forward+backward step at 256^2, depth 4 under wave2 (the driven path:
+    timed, its wave2_mt launches counted, one call profiled) and under bvh
+    (its gradients equal to wave2's); central differences and train_step
+    descent on the hall; the wave engine against wave2 on camera and bounce
+    windows of mesh200k and the hall.  ``hall`` is phase 12's viewport,
+    ``mesh`` the (scene, meta, cam) of mesh200k.  Returns the wave2_mt and
+    the bvh_walk launches of the two steps."""
+    t16 = time.perf_counter()
+    scene, meta, cam = hall.scene, hall.meta, hall.cam
+    tcg.check_against_cpu(dev, log)
+
+    label = "interior800k_fwd_bwd"
+    check(traverse.get_traversal_mode() == "auto" and not os.environ.get("RT_TRAVERSAL_MODE"),
+          "the traversal mode is the default (auto -> wave2)")
+    w2.mt_chunks.launches = 0
+    step, grads = tcg.time_fwd_bwd(scene, meta, cam, dev, log, f"{label} [wave2]")
+    launches = w2.mt_chunks.launches
+    check(launches > 0, f"the {label} step launched the wave2_mt kernel")
+    vp, params = ViewportParams(256, 256, seed=0), RenderParams(max_depth=4, mis=True)
+    device_ms = profiled(lambda: tcg.fwd_bwd(scene, meta, cam, vp, params)[1][0][:1].cpu(), f"{label} [wave2] call",
+                         named=("wave2_mt",))
+    idle = 1 - device_ms / (step["s_per_call"] * 1e3)
+    log(f"mrays_per_sec_interior800k_fwd_bwd {step['mrays_per_sec']:.4f} Mray/s (forward rays; the cost includes the "
+        f"reverse pass), {step['s_per_call'] * 1e3:.1f} ms a call, forward alone {step['forward_s'] * 1e3:.1f} ms; "
+        f"device time of a profiled call {device_ms:.1f} ms: idle {idle:.3f} ({smi})")
+    RENDERS.append(f"summary {label} [wave2]: mrays_per_sec_interior800k_fwd_bwd {step['mrays_per_sec']:.4f}, "
+                   f"{step['s_per_call'] * 1e3:.1f} ms a call (forward alone {step['forward_s'] * 1e3:.1f} ms, with "
+                   f"the graph {step['forward_with_graph_s'] * 1e3:.1f} ms), {step['rays']:.0f} rays a forward, "
+                   f"wave2_mt launches {launches} in {step['forwards']} forwards, peak {step['peak_gib']:.2f} GiB, saved "
+                   f"{step['saved_gib']:.3f} GiB, idle {idle:.3f}")
+
+    traverse.set_traversal_mode("bvh")
+    bt.bvh_walk.launches = w2.mt_chunks.launches = 0
+    bstep, bgrads = tcg.time_fwd_bwd(scene, meta, cam, dev, log, f"{label} [bvh]")
+    walk_launches, w2_launches = bt.bvh_walk.launches, w2.mt_chunks.launches
+    traverse.set_traversal_mode("auto")
+    check(walk_launches > 0 and w2_launches == 0, f"the {label} step under bvh launched bvh_walk and not wave2_mt")
+    tcg.gradients_agree(bgrads, grads, f"{label}: bvh against wave2", log, tcg.SCENE_PARAMS[:7])
+    RENDERS.append(f"summary {label} [bvh]: {bstep['mrays_per_sec']:.4f} Mray/s, {bstep['s_per_call'] * 1e3:.1f} ms "
+                   f"a call (forward alone {bstep['forward_s'] * 1e3:.1f} ms), bvh_walk launches {walk_launches} in "
+                   f"{bstep['forwards']} forwards, peak {bstep['peak_gib']:.2f} GiB")
+
+    tcg.check_finite_differences(scene, meta, cam, log)
+    tcg.descend(scene, meta, cam, log)
+
+    for name, (sc, me, ca) in (("mesh200k", mesh), ("interior800k", (scene, meta, cam))):
+        o, d = camera_window(ca, dev)
+        reach = float(me.scene_radius)
+        t, tri = w2.wave2_closest_hit(sc.clusters, vec(o, dev), vec(d, dev), 3.0e38)[:2]
+        for window, (wo, wd) in (("camera", (o, d)), ("bounce", bounce_window(o, d, t, tri >= 0, dev))):
+            tcg.wave_against_wave2(sc.clusters, wo, wd, reach, dev, log, f"{name} {window} window")
+    log(f"phase 16 (gradients) wall time {time.perf_counter() - t16:.1f} s")
+    return launches, walk_launches
 
 
 def log_bvh_builds():
@@ -583,7 +668,7 @@ def run():
     check(w2.mt_chunks.launches > 0, "the mesh render launched the wave2_mt kernel")
     check(overflow == 0, "traversal overflow is 0")
     check(bool(np.isfinite(radiance).all()) and radiance.mean() > 0, "radiance finite with non-zero mean")
-    profiled_pass(vp, "mesh200k_mis [wave2]", named=("wave2_mt",))
+    profiled(lambda: vp.render(1), "mesh200k_mis [wave2] pass", named=("wave2_mt",))
 
     cscene, cmeta = cornell_box(device=dev)
     t_kw, c_kw = cornell_camera_kw()
@@ -617,7 +702,7 @@ def run():
     check(pt.phase2_stream.launches > 0 and w2.mt_chunks.launches == 0,
           "the sorted-pallas render launched the phase2_stream kernel and not wave2_mt")
     check(bool(np.isfinite(radiance).all()) and radiance.mean() > 0, "radiance finite with non-zero mean")
-    profiled_pass(vp, "mesh200k_mis [sorted-pallas]")
+    profiled(lambda: vp.render(1), "mesh200k_mis [sorted-pallas] pass")
     # the same mode through the environment, which overrides set_traversal_mode
     traverse.set_traversal_mode("auto")
     os.environ["RT_TRAVERSAL_MODE"] = "sorted-pallas"
@@ -687,11 +772,18 @@ def run():
     mt["max_abs_err"] = max(w["max_abs_err"] for path in mt["by_path"].values() for w in path["windows"].values())
     log(f"phase 15 (instanced hall) wall time {time.perf_counter() - t15:.1f} s")
 
+    # --- 16. reverse-mode gradients: the hall's forward+backward step ----------
+    fb_launches, fb_walk = fwd_bwd_phase(hall, (mscene, mmeta, mcam), dev, smi)
+    mt["by_path"]["interior800k_fwd_bwd"] = {"launches": fb_launches, "windows_of": "interior800k_mis",
+                                             "windows": mt["by_path"]["interior800k_mis"]["windows"]}
+    by_path["interior800k_fwd_bwd (bvh)"] = {"launches": fb_walk, "windows_of": "interior800k_mis",
+                                             "windows": by_path["interior800k_mis"]["windows"]}
+
     top = by_path["mesh200k_mis"]["windows"]["bounce"]["closest"]
     rows["bvh_walk"] = {
         "name": "bvh_walk", "route": "cuda", "source": "raytracer_tpu_torch/csrc/bvh_walk.cu",
         "replaces": "raytracer_tpu/ops/bvh_traverse.py:131", "launches": sum(
-            by_path[p]["launches"] for p in ("mesh200k_mis", "interior800k_mis")),
+            by_path[p]["launches"] for p in ("mesh200k_mis", "interior800k_mis", "interior800k_fwd_bwd (bvh)")),
         "max_abs_err": max(w[k]["max_abs_err"] for p in by_path.values() for w in p["windows"].values()
                            for k in ("closest", "any-hit")),
         **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,

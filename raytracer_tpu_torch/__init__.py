@@ -6,13 +6,15 @@ and signatures, so a test can feed both the same numpy inputs.
 
 So far: the MIS path tracer on analytic scenes and on triangle meshes, the
 mesh through a selectable traversal backend (the wave2 sort-join engine by
-default; the block-candidate ``sorted-pallas`` path; the per-ray ``cluster``
-path):
+default; the binned-wavefront ``wave`` engine; the skip-link ``bvh`` walk;
+the block-candidate ``sorted-pallas`` path; the per-ray ``cluster`` path),
+differentiable by autograd through ``render.renderer.trace_rows``:
 
-    render/      Viewport, render_passes, film accumulation
+    render/      Viewport, render_passes, film accumulation, trace_rows
+    parallel/    train_step (one-device material-gradient step)
     integrators/ path_tracer (naive + MIS, fused shadow query)
     scene/       SoA scene NamedTuples, camera, builder, clusters, BVH perm
-    ops/         intersect, traverse (mode dispatch), wave2 engine,
+    ops/         intersect, traverse (mode dispatch), wave2 and wave engines,
                  block-candidate and per-ray cluster traversal, BSDF, lights,
                  materials, the launch probe, the CUDA kernel build
     math/        SoA vector math, sampling, microfacet, fresnel, transforms

@@ -24,7 +24,7 @@ from ..math.sampling import (
     spherical_quad_prepare,
     world_to_local,
 )
-from ..math.vec import Vec3, dot, max_component, where as vwhere
+from ..math.vec import Vec3, clip, dot, max_component, where as vwhere
 from ..ops import bsdf as bsdf_ops
 from ..ops.intersect import BIG, Hits, PrimFrame
 from ..ops.lights import env_direction_pdf, gather_light, illuminate, sphere_cone_cos_max
@@ -284,7 +284,7 @@ def trace_radiance(scene: SceneData, meta: SceneMeta, rays: Rays, stream: Sample
 
         # --- Russian roulette
         u_rr, stream = next_1d(stream)
-        threshold = 0.125 + 0.875 * torch.clamp(max_component(mp.base_color), 0.0, 1.0)
+        threshold = 0.125 + 0.875 * clip(max_component(mp.base_color), 0.0, 1.0)
         if depth >= params.min_rr_depth:
             survive = survive & ~(u_rr > threshold)
             throughput = throughput * torch.where(survive, 1.0 / torch.clamp_min(threshold, 1e-6), 1.0)

@@ -102,5 +102,14 @@ def where(mask, a: Vec3, b: Vec3) -> Vec3:
 
 
 
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: the values of ``torch.clamp``, and the reference's
+    gradient at a bound.  ``jnp.clip`` is a maximum then a minimum, and each
+    passes half the gradient to each side of a tie, so x exactly on a bound
+    gets half of it where ``torch.clamp`` passes all.  Use it where a
+    differentiated table value can sit exactly on the bound."""
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)), x.new_full((), hi))
+
+
 def max_component(a: Vec3) -> torch.Tensor:
     return torch.maximum(a.x, torch.maximum(a.y, a.z))

@@ -19,14 +19,17 @@ shadow rays.  A mesh goes to the backend that ``set_traversal_mode`` or the
 - ``"cluster"``: the per-ray dense two-phase path
   (``ops/cluster_traverse.py``), a second orthogonal implementation for
   validation.
+- ``"wave"``: the binned-wavefront engine (``ops/wave_traverse.py``),
+  exact, plain PyTorch; what the reference's ``"auto"`` resolves to off the
+  TPU.
 - ``"null"``: diagnostics only, skips mesh traversal.
-- ``"wave"`` is a valid name of the reference whose engine is not ported
-  yet; selecting it raises, since a chosen mode never silently becomes
-  another.
 
 Every mode but wave2 runs closest hit on ``|t_cap|`` (same answer, no
-early exit) and returns no attributes, so the shading frame is gathered
-from the triangle tables.  Instances are traced one at a time: the ray is
+early exit).  wave2 and wave return the winners' interpolated attributes;
+the others none, so their shading frames are gathered from the triangle
+tables.  Every engine sees detached rays (the reference's
+``stop_gradient``): hits carry no gradient, and the shading that follows
+re-derives the smooth quantities from them.  Instances are traced one at a time: the ray is
 moved into the instance's object space and traced through its shared mesh
 (``_instance_local_ray``), and the hits fold into one record with the
 instance id.
@@ -45,11 +48,11 @@ from .bvh_traverse import bvh_any_hit, bvh_closest_hit, eval_tri_frame
 from .cluster_traverse import cluster_any_hit, cluster_closest_hit
 from .intersect import BIG, Hits, PrimFrame, eval_prim_frame, intersect_prims, merge_frames
 from .pallas_traverse import pallas_sorted_any_hit, pallas_sorted_closest_hit
-from .wave2_traverse import wave2_any_hit, wave2_closest_hit
+from .wave2_traverse import interp_tri_attr, wave2_any_hit, wave2_closest_hit
+from .wave_traverse import wave_any_hit, wave_closest_hit
 
 _MODE = "auto"
 _VALID_MODES = ("auto", "wave2", "wave", "sorted-pallas", "cluster", "bvh", "null")
-_NOT_PORTED = ("wave",)
 
 
 def set_traversal_mode(mode: str) -> None:
@@ -74,11 +77,6 @@ def _resolved_mode(scene: SceneData = None) -> str:
         if env not in _VALID_MODES:
             raise ValueError(f"RT_TRAVERSAL_MODE={env!r} not in {_VALID_MODES}")
         mode = env
-    if mode in _NOT_PORTED:
-        raise NotImplementedError(
-            f"traversal mode {mode!r} is not ported yet (ROADMAP queue 1); "
-            "use 'wave2', 'bvh', 'sorted-pallas' or 'cluster'"
-        )
     if mode == "bvh" and scene is not None and scene.bvh is None:
         # a user selecting the exact oracle must not silently get another path
         raise ValueError(
@@ -88,14 +86,26 @@ def _resolved_mode(scene: SceneData = None) -> str:
     return "wave2" if mode == "auto" else mode
 
 
+def _detached(*xs):
+    """The reference's ``stop_gradient`` before a mesh engine, on each
+    ``Vec3`` or tensor of ``xs``: no engine can pass a gradient or record a
+    graph."""
+    return tuple(Vec3(*(c.detach() for c in x)) if isinstance(x, Vec3) else
+                 x.detach() if torch.is_tensor(x) else x for x in xs)
+
+
 def _cs_closest(mode, clusters, bvh, tris, origin: Vec3, direction: Vec3, t_cap):
     """Closest hit over ONE mesh by the selected backend.  ``t_cap`` may be
     sign-encoded per ray (negative = any-hit lane with limit |t_cap|):
     wave2 honours the early exit per lane, the others trace |t_cap|.
     Returns (t, tri_id, u, v, overflow, attr or None)."""
+    origin, direction, t_cap = _detached(origin, direction, t_cap)
     if mode == "wave2":
         return wave2_closest_hit(clusters, origin, direction, t_cap, with_attrs=True)
     t_cap = torch.abs(t_cap)
+    if mode == "wave":
+        t, tri, u, v, ovf = wave_closest_hit(clusters, origin, direction, t_cap)
+        return t, tri, u, v, ovf, interp_tri_attr(clusters, tri, u, v)
     if mode == "null":
         z = torch.zeros_like(origin.x)
         return (torch.full_like(z, BIG), torch.full_like(z, -1, dtype=torch.int32), z, z,
@@ -110,8 +120,11 @@ def _cs_closest(mode, clusters, bvh, tris, origin: Vec3, direction: Vec3, t_cap)
 
 def _cs_occluded(mode, clusters, bvh, tris, origin: Vec3, direction: Vec3, t_max):
     """Any-hit over ONE mesh. Returns (occluded, overflow)."""
+    origin, direction, t_max = _detached(origin, direction, t_max)
     if mode == "wave2":
         return wave2_any_hit(clusters, origin, direction, t_max)
+    if mode == "wave":
+        return wave_any_hit(clusters, origin, direction, t_max)
     z = torch.zeros_like(origin.x, dtype=torch.bool)
     if mode == "null":
         return z, z
@@ -184,9 +197,10 @@ def scene_traverse(scene: SceneData, origin: Vec3, direction: Vec3, t_max=None, 
         # occluded by an instance BEHIND its light.  Closest-hit lanes keep
         # the reference's cap, so the ray counters agree with it.)
         inst_mode = "wave2" if mode == "bvh" else mode  # instanced meshes keep no BVH: the auto engine
+        o_w, d_w = _detached(origin, direction)
         for i, mid in enumerate(scene.instances.mesh_ids):
             geom = scene.mesh_geoms[mid]
-            o_l, d_l = _instance_local_ray(scene, i, origin, direction)
+            o_l, d_l = _instance_local_ray(scene, i, o_w, d_w)
             cap = best["t"] if any_hit is None else torch.where(any_hit, torch.minimum(best["t"], t_max), best["t"])
             t_t, tid, tu, tv, ovf, attr = _cs_closest(inst_mode, geom.clusters, None, geom.tris, o_l, d_l,
                                                       signed(cap))
@@ -263,9 +277,10 @@ def scene_occluded(scene: SceneData, origin: Vec3, direction: Vec3, t_max):
         overflow = overflow | ovf
     if scene.instances is not None:
         inst_mode = "wave2" if mode == "bvh" else mode
+        o_w, d_w = _detached(origin, direction)
         for i, mid in enumerate(scene.instances.mesh_ids):
             geom = scene.mesh_geoms[mid]
-            o_l, d_l = _instance_local_ray(scene, i, origin, direction)
+            o_l, d_l = _instance_local_ray(scene, i, o_w, d_w)
             # already-occluded rays query with limit 0 (the early-out analogue)
             lim = torch.where(occ, 0.0, t_max * torch.ones_like(origin.x))
             mesh_occ, ovf = _cs_occluded(inst_mode, geom.clusters, None, geom.tris, o_l, d_l, lim)

@@ -59,7 +59,10 @@ def pixel_grid(width: int, height: int, rows: int | None = None, row0: int = 0, 
 
 def trace_rows(scene: SceneData, meta: SceneMeta, cam: Camera, pass_idx: int, halton, vp: ViewportParams,
                params: RenderParams, rows: int | None = None, row0: int = 0):
-    """Camera rays + integrator for one band of pixel rows."""
+    """Camera rays + integrator for one band of pixel rows: the
+    differentiable entry point.  Radiance carries the autograd graph of
+    every scene table and camera tensor that requires grad (materials,
+    lights, the camera pose); hits do not, since traversal is detached."""
     dev = cam.tan_half_fov.device
     cx, cy, pixel_ids = pixel_grid(vp.width, vp.height, rows, row0, device=dev)
     # per-pass Gaussian AA jitter shared by all pixels
@@ -79,13 +82,17 @@ def trace_rows(scene: SceneData, meta: SceneMeta, cam: Camera, pass_idx: int, ha
     return trace_radiance(scene, meta, rays, stream, params)
 
 
+@torch.no_grad()
 def render_pass(scene: SceneData, meta: SceneMeta, cam: Camera, film: Film, pass_idx: int, halton,
                 vp: ViewportParams, params: RenderParams):
-    """One full-frame accumulation pass."""
+    """One full-frame accumulation pass.  Records no autograd graph, even
+    for tables that require grad: the film accumulates across passes, and a
+    graph would grow with it (differentiate ``trace_rows``)."""
     radiance, counters = trace_rows(scene, meta, cam, pass_idx, halton, vp, params)
     return accumulate_frame(film, radiance, use_secondary=(pass_idx % 2 == 0)), counters
 
 
+@torch.no_grad()
 def render_passes(scene: SceneData, meta: SceneMeta, cam: Camera, film: Film, pass0: int, haltons,
                   vp: ViewportParams, params: RenderParams, n_passes: int):
     """``n_passes`` accumulation passes; ``haltons`` is (n_passes, dims)
@@ -131,7 +138,8 @@ class Viewport:
         self.total_overflow = 0.0
 
     def render(self, n_passes: int = 1):
-        """Run ``n_passes`` accumulation passes."""
+        """Run ``n_passes`` accumulation passes (no autograd graph:
+        ``render_passes`` runs under ``torch.no_grad()``)."""
         pass_idx = self.film.num_passes
         halton = None
         if self.vp_params.use_low_discrepancy:

@@ -33,7 +33,7 @@ def test_port_has_the_slice_modules():
               "ops.launch_probe", "ops.cuda_build",
               "integrators.path_tracer", "render.film", "render.renderer",
               "color.colorhelpers", "ops.textures", "math.distribution", "io.exr", "io.bmp",
-              "render.postprocess"):
+              "render.postprocess", "ops.wave_traverse", "parallel.mesh"):
         assert f"raytracer_tpu_torch.{m}" in mods, m
 
 
@@ -50,6 +50,23 @@ def test_importing_every_port_module_leaves_jax_out():
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and "clean" in res.stdout, res.stderr[-2000:]
+
+
+def test_gradient_tool_and_its_modules_leave_jax_out():
+    """``tools/torch_check_gradients.py`` (and through it ``parallel/`` and
+    ``ops/wave_traverse.py``) imports no jax and nothing of the JAX package."""
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import torch_check_gradients\n"
+        "import raytracer_tpu_torch.parallel.mesh, raytracer_tpu_torch.ops.wave_traverse\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'raytracer_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and "clean" in res.stdout, res.stderr[-2000:]
 
 

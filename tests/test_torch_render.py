@@ -130,7 +130,7 @@ def test_traversal_mode_selection(restore_modes, monkeypatch):
     with pytest.raises(ValueError, match="not in"):
         traverse.set_traversal_mode("sorted_pallas")  # a typo raises
     assert traverse.get_traversal_mode() == "auto"
-    for mode in ("wave2", "sorted-pallas", "cluster", "null"):
+    for mode in ("wave2", "wave", "sorted-pallas", "cluster", "null"):
         traverse.set_traversal_mode(mode)
         assert traverse.get_traversal_mode() == mode and traverse._resolved_mode() == mode
     assert traverse._VALID_MODES == ref_traverse._VALID_MODES
@@ -145,28 +145,27 @@ def test_traversal_mode_selection(restore_modes, monkeypatch):
 
 @pytest.mark.parametrize("mode", ["wave", "bvh"])
 @pytest.mark.parametrize("how", ["set", "env"])
-def test_wave_raises_and_bvh_walks_and_neither_becomes_another(restore_modes, monkeypatch, tmp_path, mode, how):
-    """``wave`` (not ported) raises; ``bvh`` renders through the skip-link
-    walk and never reaches wave2's engine; set or through the environment."""
+def test_wave_and_bvh_render_through_their_own_engines_and_neither_becomes_another(
+        restore_modes, monkeypatch, tmp_path, mode, how):
+    """``wave`` renders through the binned-wavefront engine and ``bvh``
+    through the skip-link walk; neither reaches wave2's engine, whether the
+    mode is set or comes through the environment."""
     _, got = _bench_mesh(tmp_path, monkeypatch)
     if how == "set":
-        traverse.set_traversal_mode(mode)  # a valid name of the reference
+        traverse.set_traversal_mode(mode)
     else:
         monkeypatch.setenv("RT_TRAVERSAL_MODE", mode)
     pv = Viewport(*got, ViewportParams(8, 8, seed=0), RenderParams(max_depth=2, mis=True), device="cpu")
-    if mode == "wave":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pv.render(1)
-        return
-    calls = {"bvh_closest_hit": 0, "wave2_closest_hit": 0, "mt_chunks": 0}
+    engine = {"wave": "wave_closest_hit", "bvh": "bvh_closest_hit"}[mode]
+    calls = {engine: 0, "wave2_closest_hit": 0, "mt_chunks": 0}
     count = lambda name, real: lambda *a, **k: (calls.__setitem__(name, calls[name] + 1), real(*a, **k))[1]
     from raytracer_tpu_torch.ops import wave2_traverse
 
-    with mock.patch.object(traverse, "bvh_closest_hit", count("bvh_closest_hit", traverse.bvh_closest_hit)), \
+    with mock.patch.object(traverse, engine, count(engine, getattr(traverse, engine))), \
             mock.patch.object(traverse, "wave2_closest_hit", count("wave2_closest_hit", traverse.wave2_closest_hit)), \
             mock.patch.object(wave2_traverse, "mt_chunks", count("mt_chunks", wave2_traverse.mt_chunks)):
         rad = pv.render(1).radiance()
-    assert calls["bvh_closest_hit"] > 0 and calls["wave2_closest_hit"] == calls["mt_chunks"] == 0, calls
+    assert calls[engine] > 0 and calls["wave2_closest_hit"] == calls["mt_chunks"] == 0, calls
     assert np.isfinite(rad).all() and rad.mean() > 0
 
 
@@ -175,8 +174,8 @@ def test_each_mode_reaches_its_own_engine(restore_modes, tmp_path, monkeypatch):
     own engine and to no other."""
     _, got = _bench_mesh(tmp_path, monkeypatch)
     engines = {"wave2": "wave2_closest_hit", "sorted-pallas": "pallas_sorted_closest_hit",
-               "cluster": "cluster_closest_hit", "bvh": "bvh_closest_hit"}
-    for mode in ("auto", "wave2", "sorted-pallas", "cluster", "bvh", "null"):
+               "cluster": "cluster_closest_hit", "bvh": "bvh_closest_hit", "wave": "wave_closest_hit"}
+    for mode in ("auto", "wave2", "sorted-pallas", "cluster", "bvh", "wave", "null"):
         calls = {name: 0 for name in engines.values()}
         with mock.patch.multiple(traverse, **{
             name: (lambda real, name: lambda *a, **k: (calls.__setitem__(name, calls[name] + 1), real(*a, **k))[1])(

@@ -3,6 +3,8 @@ on one device against the CPU.
 
     python tools/torch_check_textures.py [cuda|cpu]
 
+(cuda by default; it exits when there is no card.)
+
 None of this is a hand-written kernel: it is plain PyTorch, and the check is
 that the device computes what the CPU computes.  ``check_textures`` samples
 2^20 lanes of mixed texture ids (three bitmaps in the three filters, a
@@ -198,5 +200,7 @@ def check_all(dev, log=print, lanes=LANES):
 
 
 if __name__ == "__main__":
-    where = sys.argv[1] if len(sys.argv) > 1 else ("cuda" if torch.cuda.is_available() else "cpu")
+    where = sys.argv[1] if len(sys.argv) > 1 else "cuda"
+    if torch.device(where).type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: give 'cpu' to run the checks on the CPU")
     check_all(where, lanes=LANES if where != "cpu" else 1 << 14)

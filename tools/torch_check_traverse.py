@@ -3,10 +3,10 @@ kernels (counterpart of ``tools/check_pallas.py`` and of the ``cluster``,
 ``pallas``, ``sorted``, ``wave2`` and ``bvh`` rows of
 ``tools/traversal_bench.py``).
 
-    python tools/torch_check_traverse.py [n_tris] [n_rays]
+    python tools/torch_check_traverse.py [cuda|cpu] [n_tris] [n_rays]
 
-Runs on the CUDA device when there is one (the kernels), else on the CPU at
-a small size (the kernels' plain versions).  Imports torch, numpy and the
+Runs on the CUDA device (the kernels; it exits when there is none), or with
+``cpu`` on the CPU at a small size (the kernels' plain versions).  Imports torch, numpy and the
 port only.  ``chip_smoke.py`` calls ``check_kernels``, ``check_engines``,
 ``check_bvh_walk`` and ``bvh_against_wave2`` in its phases.
 """
@@ -767,10 +767,13 @@ def main():
     from raytracer_tpu_torch.scene.bvh import build_bvh_over_triangles
     from raytracer_tpu_torch.scene.clusters import build_clusters
 
-    on_card = torch.cuda.is_available()
+    args = sys.argv[1:]
+    on_card = (args.pop(0) if args and args[0] in ("cuda", "cpu") else "cuda") == "cuda"
+    if on_card and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device: give 'cpu' to run the plain versions on the CPU")
     dev = torch.device("cuda", 0) if on_card else torch.device("cpu")
-    n_tris = int(sys.argv[1]) if len(sys.argv) > 1 else (200_000 if on_card else 2000)
-    n_rays = int(sys.argv[2]) if len(sys.argv) > 2 else (65_536 if on_card else 2048)
+    n_tris = int(args[0]) if len(args) > 0 else (200_000 if on_card else 2000)
+    n_rays = int(args[1]) if len(args) > 1 else (65_536 if on_card else 2048)
     print(f"device: {torch.cuda.get_device_name(0) if on_card else 'cpu (plain versions)'}  "
           f"tris~{n_tris}  rays={n_rays}")
     verts, faces = bench_mesh.make_mesh(n_tris)
