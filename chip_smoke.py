@@ -123,6 +123,35 @@ Phases (any failure exits non-zero before the last line):
     the wave engine against wave2 on the camera and bounce windows of
     mesh200k and of the hall: tri ids equal but on exact ties, t bit-equal
     where they agree, occlusion equal, both timed.
+17. the command-line entry point (tools/torch_check_integrators.py::
+    entry_point): cli.main in process on the Cornell box at 512^2, 4
+    passes, --max-depth 10, --renderer mis (.bmp), lt and vcm (.png; the CLI
+    gives VCM max_path_length 10): seconds, Mray/s as the CLI prints it,
+    mean radiance; each output decodes to Viewport.image()'s pixels; LT's
+    mean within rtol 0.05 of MIS's on the pixels that see no light (the
+    light tracer renders no emitter the camera sees), vertex connection
+    alone (VCM without merging) within rtol 0.03 of MIS's there, the full
+    VCM's difference logged beside the grid cells it overfills; then LT and
+    VCM on the card against the port on the CPU at 64^2 after pass 0 and
+    pass 1, film values within the CPU parity tests' rtol 1e-4 / atol 1e-6
+    on the box shifted off the photon grid (the unshifted box's walls lie on
+    cell boundaries: logged), and one VCM pass run twice on the card, bit
+    for bit.
+18. LT and VCM on the 800k hall at 512^2 under wave2 (torch_check_integrators
+    ::hall_integrators): one pass each (VcmParams(), max path length 8; LT
+    max_depth 8): seconds, rays and shadow rays traced, peak memory,
+    wave2_mt launches, photons stored and grid cells over max_per_cell,
+    finite radiance with a non-zero mean; a VCM pass profiled (its device
+    idle share); wave2_mt against its twin on a window of 65,536 of VCM's
+    vertex-connection any-hit rays.
+19. the debug renderer and the counters on the hall
+    (torch_check_integrators::debug_and_counters): render_debug in all 14
+    modes on the 512^2 camera rays (finite; constant only where the scene's
+    own material column is), TriangleID on the card equal to the CPU port's
+    on a 64^2 crop of the same rays (the hall loaded on the CPU too), one
+    MIS pass with count_traversal (total_box_tests, total_tri_tests), and
+    the instanced hall's TraversalCost beside the baked hall's on the same
+    rays (logged: the two hold their triangles in different cluster sets).
 
 Every line goes to raytracer_tpu_torch/_build/chip_smoke.log too (truncated
 at the start of a run), since the tail of the output may be cut.  The last
@@ -153,6 +182,7 @@ sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 import bench_mesh  # noqa: E402  (numpy-only scene generator)
 import torch_check_gradients as tcg  # noqa: E402
+import torch_check_integrators as tci  # noqa: E402
 import torch_check_textures as tctex  # noqa: E402
 import torch_check_traverse as tct  # noqa: E402
 import torch_gen_interior  # noqa: E402
@@ -526,7 +556,7 @@ def instanced_hall(baked, dev, smi):
     log(f"interior800k_inst_mis [bvh] one pass: {(time.perf_counter() - t0) * 1e3:.1f} ms; bvh_walk launches "
         f"{both[0]} (the shell), wave2_mt launches {both[1]} (the instances)")
     check(both[0] > 0 and both[1] > 0, "under bvh the shell launched bvh_walk and the instances wave2_mt")
-    return (launches, windows), (both, walk_windows)
+    return (launches, windows), (both, walk_windows), scene
 
 
 def fwd_bwd_phase(hall, mesh, dev, smi):
@@ -585,6 +615,58 @@ def fwd_bwd_phase(hall, mesh, dev, smi):
             tcg.wave_against_wave2(sc.clusters, wo, wd, reach, dev, log, f"{name} {window} window")
     log(f"phase 16 (gradients) wall time {time.perf_counter() - t16:.1f} s")
     return launches, walk_launches
+
+
+def integrator_phases(hall, inst_scene, mt, dev, smi):
+    """Phases 17 to 19 (tools/torch_check_integrators.py): the entry point
+    on the Cornell box; LT and VCM on the hall (``hall``: phase 12's
+    viewport), with wave2_mt against its twin on VCM's vertex-connection
+    rays; the debug renderer and the counters on the hall, TriangleID
+    against a CPU copy of the hall, the traversal cost beside the instanced
+    hall's (``inst_scene``).  Adds the driven
+    paths to wave2_mt's row ``mt``."""
+    # --- 17. the command-line entry point on the Cornell box ------------------
+    t17 = time.perf_counter()
+    cli_stats = tci.entry_point(dev, log, os.path.join(ROOT, "raytracer_tpu_torch", "_build", "cli_out"))
+    for name in ("mis", "lt", "vcm"):
+        st = cli_stats[name]
+        RENDERS.append(f"summary cornell_{name} (cli, 512^2, --max-depth 10): {st['seconds']} s for 4 passes, "
+                       f"{st['mrays_per_sec']} Mray/s as the CLI prints it, mean radiance {st['mean']:.6f} (off the "
+                       f"lights {st['mean_off_lights']:.6f})")
+    RENDERS.append(f"summary cornell VCM without merging 512^2, 4 passes: mean off the lights "
+                   f"{cli_stats['bdpt']['mean_off_lights']:.6f}; the CLI's VCM: {cli_stats['vcm']['photons']} photons, "
+                   f"{cli_stats['vcm']['cells_over']} cells over max_per_cell")
+    log(f"phase 17 (entry point) wall time {time.perf_counter() - t17:.1f} s")
+
+    # --- 18. LT and VCM on the hall ------------------------------------------------
+    t18 = time.perf_counter()
+    check(traverse.get_traversal_mode() == "auto", "the traversal mode is the default (auto -> wave2)")
+    hall_out = tci.hall_integrators(hall.scene, hall.meta, hall.cam, dev, log, smi, profiled)
+    o, d, tl = hall_out["window"]
+    window = tct.check_wave2_window(hall.scene.clusters, o, d, tl, dev, log, label="interior800k vcm connection window")
+    mt["by_path"]["interior800k_lt"] = {"launches": hall_out["lt"]["wave2_mt_launches"], "windows_of": "interior800k_mis",
+                                        "windows": mt["by_path"]["interior800k_mis"]["windows"]}
+    mt["by_path"]["interior800k_vcm"] = {"launches": hall_out["vcm"]["wave2_mt_launches"],
+                                         "windows": {"vertex connection": window}}
+    for name in ("lt", "vcm"):
+        h = hall_out[name]
+        RENDERS.append(f"summary interior800k_{name} [wave2] 512^2: {h['s_per_pass'] * 1e3:.1f} ms a pass, rays "
+                       f"{h['rays']} and shadow rays {h['shadow_rays']}, {(h['rays'] + h['shadow_rays']) / h['s_per_pass'] / 1e6:.4f}"
+                       f" Mray/s, wave2_mt launches {h['wave2_mt_launches']}, peak {h['peak_gib']:.2f} GiB"
+                       + (f", {h['photons']} photons, {h['cells_over']} cells over max_per_cell, device idle "
+                          f"{h['idle']:.3f}" if name == "vcm" else ""))
+    log(f"phase 18 (LT and VCM on the hall) wall time {time.perf_counter() - t18:.1f} s")
+
+    # --- 19. the debug renderer and the traversal counters on the hall -----------
+    t19 = time.perf_counter()
+    w2.mt_chunks.launches = 0
+    counted = tci.debug_and_counters(hall.scene, hall.meta, hall.cam, dev, log, inst_scene=inst_scene)
+    mt["by_path"]["interior800k_mis count_traversal + debug"] = {"launches": w2.mt_chunks.launches,
+                                                                 "windows_of": "interior800k_mis",
+                                                                 "windows": mt["by_path"]["interior800k_mis"]["windows"]}
+    RENDERS.append(f"summary interior800k_mis count_traversal 512^2: {counted['s_per_pass'] * 1e3:.1f} ms a pass, "
+                   f"total_box_tests {counted['box_tests']:.0f}, total_tri_tests {counted['tri_tests']:.0f}")
+    log(f"phase 19 (debug renderer and counters) wall time {time.perf_counter() - t19:.1f} s")
 
 
 def log_bvh_builds():
@@ -766,7 +848,7 @@ def run():
 
     # --- 15. the instanced hall --------------------------------------------------
     t15 = time.perf_counter()
-    (inst_launches, inst_windows), (inst_bvh, walk_windows) = instanced_hall(hall, dev, smi)
+    (inst_launches, inst_windows), (inst_bvh, walk_windows), inst_scene = instanced_hall(hall, dev, smi)
     mt["by_path"]["interior800k_inst_mis"] = {"launches": inst_launches, "windows": inst_windows}
     by_path["interior800k_inst_mis (shell under bvh, one pass)"] = {"launches": inst_bvh[0], "windows": walk_windows}
     mt["max_abs_err"] = max(w["max_abs_err"] for path in mt["by_path"].values() for w in path["windows"].values())
@@ -778,6 +860,9 @@ def run():
                                              "windows": mt["by_path"]["interior800k_mis"]["windows"]}
     by_path["interior800k_fwd_bwd (bvh)"] = {"launches": fb_walk, "windows_of": "interior800k_mis",
                                              "windows": by_path["interior800k_mis"]["windows"]}
+
+    integrator_phases(hall, inst_scene, mt, dev, smi)
+    mt["max_abs_err"] = max(w["max_abs_err"] for path in mt["by_path"].values() for w in path["windows"].values())
 
     top = by_path["mesh200k_mis"]["windows"]["bounce"]["closest"]
     rows["bvh_walk"] = {

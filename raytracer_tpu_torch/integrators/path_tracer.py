@@ -5,7 +5,9 @@ The bounce loop is a python loop over bounce index with per-lane alive
 masks.  With MIS and one shadow ray per lane, each bounce's shadow query is
 traced in ONE wavefront with the next bounce's closest-hit rays: the shadow
 lanes carry a negative limit and keep any-hit semantics in the wave2
-engine.  Spectral rendering and traversal-cost counters wait (ROADMAP).
+engine.  ``RenderParams.count_traversal`` adds each live ray's box and
+triangle tests (``scene_traversal_cost``) to the counters.  Spectral
+rendering waits (ROADMAP).
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from ..ops.intersect import BIG, Hits, PrimFrame
 from ..ops.lights import env_direction_pdf, gather_light, illuminate, sphere_cone_cos_max
 from ..ops.materials import apply_normal_map, resolve_material
 from ..ops.textures import sample_texture_many
-from ..ops.traverse import scene_hit_frame, scene_occluded, scene_traverse
+from ..ops.traverse import scene_hit_frame, scene_occluded, scene_traversal_cost, scene_traverse
 from ..sampler.sampler import SampleStream, next_1d, next_3d
 from ..scene.camera import Rays
 from ..scene.types import (
@@ -56,7 +58,8 @@ class RenderParams:
     mis: bool = True  # False => naive PathTracer semantics
     light_strategy: str = "single"  # "single" | "all"
     spectral: bool = False  # not ported yet
-    count_traversal: bool = False  # not ported yet
+    # opt-in per-ray traversal-work counters: an extra slab pass a bounce
+    count_traversal: bool = False
 
 
 class Counters(NamedTuple):
@@ -64,7 +67,10 @@ class Counters(NamedTuple):
 
     num_rays: torch.Tensor  # primary + secondary rays actually traced
     num_shadow_rays: torch.Tensor
-    num_overflow: torch.Tensor  # rays whose mesh traversal may have truncated
+    num_overflow: torch.Tensor = None  # rays whose mesh traversal may have truncated
+    # ray-box and ray-triangle tests of the live rays (count_traversal)
+    num_box_tests: torch.Tensor = None
+    num_tri_tests: torch.Tensor = None
 
 
 def _combine_mis(sample_pdf, other_pdf):
@@ -194,10 +200,8 @@ def _take(hits: Hits, sl: slice) -> Hits:
 def trace_radiance(scene: SceneData, meta: SceneMeta, rays: Rays, stream: SampleStream,
                    params: RenderParams):
     """Trace a wavefront to completion. Returns (radiance per ray, counters)."""
-    if params.spectral or params.count_traversal:
-        raise NotImplementedError(
-            "spectral rendering and traversal-cost counters wait (ROADMAP queue 0)"
-        )
+    if params.spectral:
+        raise NotImplementedError("spectral rendering waits (ROADMAP queue 1 item 5)")
     n = rays.origin.x.shape
     dev = rays.origin.x.device
     pick_prob = _light_pick_probability(meta, params)
@@ -216,9 +220,16 @@ def trace_radiance(scene: SceneData, meta: SceneMeta, rays: Rays, stream: Sample
     num_rays = zero + float(n[0])
     num_shadow = zero
     num_overflow = zero
+    num_box = zero
+    num_tri = zero
 
     # the final step only resolves the last segment's miss / light hit
     for depth in range(params.max_depth + 1):
+        if params.count_traversal:
+            bt, tt = scene_traversal_cost(scene, origin, direction)
+            live = alive.to(torch.float32)
+            num_box = num_box + (bt * live).sum()
+            num_tri = num_tri + (tt * live).sum()
         num_overflow = num_overflow + (alive & hits.overflow).to(torch.float32).sum()
         miss = hits.t >= BIG * 0.5
         hits = hits._replace(t=torch.clamp(hits.t, 0.0, 1e12))
@@ -326,4 +337,4 @@ def trace_radiance(scene: SceneData, meta: SceneMeta, rays: Rays, stream: Sample
         last_specular = torch.where(survive, smp.specular, last_specular)
         origin, direction, hits, alive = new_origin, new_dir, hits_next, survive
 
-    return result, Counters(num_rays, num_shadow, num_overflow)
+    return result, Counters(num_rays, num_shadow, num_overflow, num_box, num_tri)

@@ -314,3 +314,12 @@ def evaluate(mp: MatParams, wo: Vec3, wi: Vec3):
     ))
     pdf = _select(conds, [torch.where(mk, p, 0.0) for mk, p in zip(masks, pdf_vals)], zero)
     return f, pdf
+
+
+def evaluate_with_rev(mp: MatParams, wo: Vec3, wi: Vec3):
+    """``evaluate`` plus the REVERSE pdf (the pdf of sampling ``wo`` when
+    shading from ``wi``), which bidirectional MIS needs: the forward pdf
+    with the roles swapped."""
+    f, pdf = evaluate(mp, wo, wi)
+    _, rev = evaluate(mp, wi, wo)
+    return f, pdf, rev

@@ -4,7 +4,7 @@
 Every light kind's Illuminate is computed masked and selected by the
 per-light kind.  A background light with a lat-long bitmap is importance
 sampled through its 2-D distribution; without one it samples the
-hemisphere about the normal.  Photon emission (``emit``) waits with the
+hemisphere about the normal.  ``emit`` samples photon emission for the
 light tracer and VCM.
 """
 
@@ -288,3 +288,82 @@ def background_radiance(lights: Lights, light_idx: int, ray_dir: Vec3):
     """Background light color for a ray direction."""
     l = gather_light(lights, torch.full_like(ray_dir.x, light_idx, dtype=torch.int64))
     return l.color
+
+
+class Emission(NamedTuple):
+    """One emitted photon per lane, with its pdfs (the throughput is not yet
+    divided by the emission pdf)."""
+
+    position: Vec3
+    direction: Vec3
+    emission_pdf_w: torch.Tensor
+    direct_pdf_a: torch.Tensor
+    cos_at_light: torch.Tensor
+    radiance: Vec3  # color term, NOT yet divided by the emission pdf
+
+
+def emit(l: LightSlice, u1, u2, u3, u4, u5, scene_radius: float = SCENE_RADIUS) -> Emission:
+    """Photon emission sampling for every light kind: point (uniform sphere),
+    spot (uniform cone), area (uniform surface point, cosine hemisphere
+    about its normal), directional (from a disc on the scene's bounding
+    sphere), background (inward from the bounding sphere)."""
+    one = torch.ones_like(u1)
+
+    # point: uniform sphere direction, pdf 1/4pi
+    dir_point = sampling.sample_sphere(u1, u2)
+    pdf_point = torch.full_like(u1, sampling.uniform_sphere_pdf())
+
+    # spot: uniform cone about local +Z
+    cone = sampling.sample_cone(l.cos_angle, u1, u2)
+    dir_spot = l.rot.to_world(cone)
+    pdf_spot = sampling.sphere_cap_pdf(torch.clamp_max(l.cos_angle, 1.0 - 1e-6))
+
+    # area: uniform surface point + cosine hemisphere about the normal
+    p_local, n_local = _sample_shape_surface(l, u3, u4, u5)
+    p_area = l.rot.to_world(p_local) + l.trans
+    n_world = l.rot.to_world(n_local)
+    t, b = sampling.build_onb(n_world)
+    h = sampling.sample_hemisphere_cos(u1, u2)
+    dir_area = sampling.local_to_world(h, t, b, n_world)
+    cos_area = h.z
+    inv_area = 1.0 / torch.clamp_min(l.area, 1e-8)
+    pdf_area_e = inv_area * torch.clamp_min(cos_area, 1e-6) / math.pi
+
+    # directional: from a disc on the scene's bounding sphere
+    cx, cy = sampling.sample_circle(u3, u4)
+    dl_dir_local = sampling.sample_cone(l.cos_angle, u1, u2)
+    dir_dl = -(l.rot.to_world(dl_dir_local))
+    du, dv = sampling.build_onb(dir_dl)
+    pos_dl = (du * cx + dv * cy - dir_dl) * scene_radius
+    pdf_dl_dir = torch.where(l.cos_angle > 0.9999, 1.0,
+                             sampling.sphere_cap_pdf(torch.clamp_max(l.cos_angle, 1.0 - 1e-6)))
+    pdf_dl = pdf_dl_dir * sampling.uniform_circle_pdf(scene_radius)
+
+    # background: inward from the bounding sphere
+    dir_bg = sampling.sample_sphere(u1, u2)
+    bu, bv = sampling.build_onb(dir_bg)
+    pos_bg = (bu * cx + bv * cy - dir_bg) * scene_radius
+    pdf_bg = sampling.uniform_sphere_pdf() * sampling.uniform_circle_pdf(scene_radius)
+
+    is_area = l.kind == LIGHT_AREA
+    is_bg = l.kind == LIGHT_BACKGROUND
+    is_dl = l.kind == LIGHT_DIRECTIONAL
+    is_spot = l.kind == LIGHT_SPOT
+
+    position = vwhere(is_area, p_area, vwhere(is_bg, pos_bg, vwhere(is_dl, pos_dl, l.trans)))
+    direction = vwhere(is_area, dir_area,
+                       vwhere(is_bg, dir_bg, vwhere(is_dl, dir_dl, vwhere(is_spot, dir_spot, dir_point))))
+    emission_pdf = _select([is_area, is_bg, is_dl, is_spot], [pdf_area_e, pdf_bg, pdf_dl, pdf_spot], pdf_point)
+    direct_pdf_a = _select([is_area, is_bg], [inv_area, torch.full_like(u1, sampling.uniform_hemisphere_pdf())],
+                           one)
+    cos_at = torch.where(is_area, cos_area, 1.0)
+    # area lights emit radiance * cos into the hemisphere
+    radiance = l.color * torch.where(is_area, torch.clamp_min(cos_area, 0.0), 1.0)
+    return Emission(
+        position=position,
+        direction=direction,
+        emission_pdf_w=torch.clamp_min(emission_pdf, 1e-12),
+        direct_pdf_a=direct_pdf_a,
+        cos_at_light=cos_at,
+        radiance=radiance,
+    )

@@ -52,6 +52,9 @@ from .wave2_traverse import interp_tri_attr, wave2_any_hit, wave2_closest_hit
 from .wave_traverse import wave_any_hit, wave_closest_hit
 
 _MODE = "auto"
+# ray x cluster pairs one block of scene_traversal_cost holds (each of its
+# slab-test temporaries is this many floats)
+COST_BLOCK_PAIRS = 1 << 24
 _VALID_MODES = ("auto", "wave2", "wave", "sorted-pallas", "cluster", "bvh", "null")
 
 
@@ -211,6 +214,55 @@ def scene_traverse(scene: SceneData, origin: Vec3, direction: Vec3, t_max=None, 
     return Hits(t=best["t"], prim_id=best["prim"], tri_id=best["tri"], u=best["u"], v=best["v"],
                 overflow=overflow, inst_id=best["inst"],
                 attr=best["attr"] if best["have_attr"] and has_mesh else None)
+
+
+def _cluster_cost(cs, o: Vec3, inv_d: Vec3):
+    """(box tests, tri tests) of each ray against one cluster set: a slab
+    test of every cluster box, and K triangle tests per box the ray's line
+    overlaps ahead of its origin.  Rays go in blocks of
+    ``COST_BLOCK_PAIRS // C``; the counts are integers, so blocking changes
+    nothing."""
+    n = o.x.shape[0]
+    lo = (cs.box_min_x, cs.box_min_y, cs.box_min_z)
+    hi = (cs.box_max_x, cs.box_max_y, cs.box_max_z)
+    step = max(1, COST_BLOCK_PAIRS // max(cs.num_clusters, 1))
+    overlapped = []
+    for a in range(0, n, step):
+        t_near = t_far = None
+        for axis in range(3):
+            oa, ia = o[axis][a:a + step, None], inv_d[axis][a:a + step, None]
+            t1 = (lo[axis][None, :] - oa) * ia
+            t2 = (hi[axis][None, :] - oa) * ia
+            near, far = torch.minimum(t1, t2), torch.maximum(t1, t2)
+            t_near = near if t_near is None else torch.maximum(t_near, near)
+            t_far = far if t_far is None else torch.minimum(t_far, far)
+        overlapped.append((t_far >= torch.clamp_min(t_near, 0.0)).sum(1).to(torch.float32))
+    tri = torch.cat(overlapped) * cs.tris_per_cluster if overlapped else o.x.new_zeros((0,))
+    return torch.full_like(o.x, float(cs.num_clusters)), tri
+
+
+def scene_traversal_cost(scene: SceneData, origin: Vec3, direction: Vec3, time=None):
+    """Per-ray traversal work: (box tests, tri tests).  Box tests are the
+    analytic prims plus every cluster's slab test; tri tests are K for each
+    cluster whose box the ray overlaps (the Möller-Trumbore work of the
+    wave engines), over the baked mesh and every instance's shared mesh in
+    its object space."""
+    origin, direction = _detached(origin, direction)
+    box_tests = torch.full_like(origin.x, float(scene.prims.count))
+    tri_tests = torch.zeros_like(origin.x)
+    tiny = 1e-12
+    inv = lambda d: 1.0 / torch.where(torch.abs(d) > tiny, d, torch.where(d >= 0, tiny, -tiny))
+    if scene.clusters is not None:
+        b, t = _cluster_cost(scene.clusters, origin, Vec3(*(inv(c) for c in direction)))
+        box_tests = box_tests + b
+        tri_tests = tri_tests + t
+    if scene.instances is not None:
+        for i, mid in enumerate(scene.instances.mesh_ids):
+            o_l, d_l = _instance_local_ray(scene, i, origin, direction, time)
+            b, t = _cluster_cost(scene.mesh_geoms[mid].clusters, o_l, Vec3(*(inv(c) for c in d_l)))
+            box_tests = box_tests + b
+            tri_tests = tri_tests + t
+    return box_tests, tri_tests
 
 
 def scene_hit_frame(scene: SceneData, hits: Hits, origin: Vec3, direction: Vec3) -> PrimFrame:

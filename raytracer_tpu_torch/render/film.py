@@ -42,3 +42,22 @@ def accumulate_frame(film: Film, radiance: Vec3, use_secondary: bool) -> Film:
 def average_radiance(film: Film) -> torch.Tensor:
     """(H, W, 3) mean radiance."""
     return film.sum / float(max(film.num_passes, 1))
+
+
+def splat(film: Film, px: torch.Tensor, py: torch.Tensor, color: Vec3, mask) -> Film:
+    """Scatter-add a batch of film-space samples (the light tracer's and
+    VCM's camera connections).  ``px`` / ``py`` are integer pixel coords;
+    lanes off the film or outside ``mask`` add zero to a clipped pixel.
+
+    The sum is ``index_put_(accumulate=True)``, not ``index_add_``: on CUDA
+    it sorts the pixel indices and adds each pixel's samples in that order,
+    so a pass repeats bit for bit, where ``index_add_``'s atomics add them in
+    whatever order the threads arrive.  On the CPU it adds them in lane
+    order, as the reference's scatter-add does."""
+    h, w = film.sum.shape[:2]
+    inb = mask & (px >= 0) & (px < w) & (py >= 0) & (py < h)
+    fx = torch.clamp(px, 0, w - 1).long()
+    fy = torch.clamp(py, 0, h - 1).long()
+    m = inb.to(torch.float32)
+    vals = torch.stack([color.x * m, color.y * m, color.z * m], dim=-1)
+    return film._replace(sum=film.sum.index_put((fy, fx), vals, accumulate=True))

@@ -136,6 +136,8 @@ class Viewport:
         self.total_rays = 0.0
         self.total_shadow_rays = 0.0
         self.total_overflow = 0.0
+        self.total_box_tests = 0.0
+        self.total_tri_tests = 0.0
 
     def render(self, n_passes: int = 1):
         """Run ``n_passes`` accumulation passes (no autograd graph:
@@ -153,6 +155,8 @@ class Viewport:
         self.total_rays += float(counters.num_rays)
         self.total_shadow_rays += float(counters.num_shadow_rays)
         self.total_overflow += float(counters.num_overflow)
+        self.total_box_tests += float(counters.num_box_tests)
+        self.total_tri_tests += float(counters.num_tri_tests)
         return self
 
     def radiance(self) -> np.ndarray:
@@ -169,4 +173,7 @@ class Viewport:
             "total_shadow_rays": self.total_shadow_rays,
             # nonzero means the traversal truncated some rays
             "total_traversal_overflow": self.total_overflow,
+            # box and triangle tests of the live rays (RenderParams.count_traversal); 0 when off
+            "total_box_tests": self.total_box_tests,
+            "total_tri_tests": self.total_tri_tests,
         }

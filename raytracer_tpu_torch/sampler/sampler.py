@@ -140,6 +140,12 @@ def next_1d(s: SampleStream):
     return u, s._replace(dim=s.dim + 1)
 
 
+def next_2d(s: SampleStream):
+    u1, s = next_1d(s)
+    u2, s = next_1d(s)
+    return u1, u2, s
+
+
 def next_3d(s: SampleStream):
     u1, s = next_1d(s)
     u2, s = next_1d(s)

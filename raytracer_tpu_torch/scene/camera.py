@@ -14,7 +14,7 @@ import torch
 
 from ..math import sampling
 from ..math.transform import RigidTransform
-from ..math.vec import Vec3, normalize
+from ..math.vec import Vec3, dot, normalize
 from ..sampler.sampler import SampleStream, next_1d, next_3d
 from .types import Camera
 
@@ -80,3 +80,29 @@ def generate_rays(cam: Camera, coords_x, coords_y, stream: SampleStream):
         direction = focus - origin
 
     return Rays(origin=origin, dir=normalize(direction, eps=1e-20)), stream
+
+
+def world_to_film(cam: Camera, p: Vec3):
+    """World point -> film coords in [0,1)^2 and whether it lies on the
+    film in front of the camera (the light tracer's and VCM's camera
+    connections)."""
+    rel = p - cam.origin
+    # camera-space coordinates (the rows are orthonormal)
+    cx = dot(rel, cam.right)
+    cy = dot(rel, cam.up)
+    cz = dot(rel, cam.forward)
+    valid = cz > 1e-6
+    inv = 1.0 / torch.where(valid, cz, 1.0)
+    fx = cx * inv / (cam.tan_half_fov * cam.aspect)
+    fy = cy * inv / cam.tan_half_fov
+    u = 0.5 * (fx + 1.0)
+    v = 0.5 * (fy + 1.0)
+    valid = valid & (u >= 0.0) & (u < 1.0) & (v >= 0.0) & (v < 1.0)
+    return u, v, valid
+
+
+def camera_pdf_w(cam: Camera, direction: Vec3) -> torch.Tensor:
+    """Solid-angle pdf of the camera sampling ``direction``."""
+    cos_at_camera = dot(cam.forward, direction)
+    pdf = 0.25 / torch.clamp_min(cam.tan_half_fov ** 2 * cos_at_camera ** 3 * cam.aspect, 1e-20)
+    return torch.where(cos_at_camera > 0.0, pdf, 0.0)

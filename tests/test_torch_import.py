@@ -33,7 +33,9 @@ def test_port_has_the_slice_modules():
               "ops.launch_probe", "ops.cuda_build",
               "integrators.path_tracer", "render.film", "render.renderer",
               "color.colorhelpers", "ops.textures", "math.distribution", "io.exr", "io.bmp",
-              "render.postprocess", "ops.wave_traverse", "parallel.mesh"):
+              "render.postprocess", "ops.wave_traverse", "parallel.mesh",
+              "integrators.light_tracer", "integrators.vcm", "integrators.debug", "ops.hashgrid", "cli",
+              "__main__", "io.png"):
         assert f"raytracer_tpu_torch.{m}" in mods, m
 
 
