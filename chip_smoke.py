@@ -74,7 +74,9 @@ Phases (any failure exits non-zero before the last line):
 13. interior800k_tex_mis: the same meshes with the textured additions of
     torch_gen_interior.ensure_interior_tex (textures block, normal-mapped
     textured floor slab, textured props, a lat-long sky on the background
-    light): the same kernel, engine and render checks, plus scene.textures and
+    light): the same kernel, engine and render checks (2 timed passes, not
+    4: a textured pass is slow, and phase 20 renders the textures again),
+    plus scene.textures and
     scene.env_dist present and Viewport.image() a (512, 512, 3) uint8 array
     that is neither constant nor saturated; before it, a 32^2 render of the
     small textured scene on the card against the CPU.
@@ -98,8 +100,8 @@ Phases (any failure exits non-zero before the last line):
     beside the baked hall's; the kernel and engine checks of phase 12 on the
     shell's cluster set and on each geometry's, the latter with the camera
     rays moved into the object space of one instance of it, and phase 14's
-    bvh_walk checks on the shell's BVH; 512^2, depth 6, MIS under wave2 (1 warm-up + 2
-    timed passes), overflow 0, one profiled pass; the mean radiance within 1%
+    bvh_walk checks on the shell's BVH; 512^2, depth 6, MIS under wave2 (1 warm-up + 1
+    timed pass), overflow 0, one profiled pass; the mean radiance within 1%
     of the baked hall's at the same seed and passes; then one timed pass
     under bvh, where the shell launches bvh_walk and the instances wave2_mt.
 16. reverse-mode gradients (tools/torch_check_gradients.py): (a) the
@@ -152,6 +154,33 @@ Phases (any failure exits non-zero before the last line):
     MIS pass with count_traversal (total_box_tests, total_tri_tests), and
     the instanced hall's TraversalCost beside the baked hall's on the same
     rays (logged: the two hold their triangles in different cluster sets).
+20. the scene effects (tools/torch_check_features.py): (a) each alone on
+    the card against the port on the CPU at 64^2, depth 4, MIS, the film
+    after pass 0 and pass 1 within rtol 1e-4 / atol 1e-6: moving prims,
+    a moving mesh instance and a moving camera (motion_blur_strength 1),
+    the circle, hexagon, square, 5- and 7-blade apertures, decals with an
+    atlas colour and alpha, the spectral Cornell box with a dispersive
+    glass sphere; a value outside passes only where the same scene without
+    the effect (held still, a pinhole, no decals, no dispersion), on the
+    same sample streams, is apart by the same amount (on the Cornell box
+    the card's and the CPU's last-bit differences flip a few shadow rays
+    at the boxes' edges either way); then the dispersive box at 256^2, 16
+    passes, its mean within 2% of the RGB render's.  (b) interior800k_fx_mis: the instanced hall of
+    phase 15 with the textured additions of phase 13, depth of field and a
+    dispersive glass sphere (torch_gen_interior.ensure_interior_fx), and,
+    set in Python on what the loader returns (torch_check_features.
+    fx_effects), velocities on the 3 knots and the sphere, a shutter-close
+    camera pose, a hexagonal aperture and 3 decals (one with the atlas and
+    an alpha texture).  Before the render, wave2_mt and the engine against
+    the twin on the shell's and each geometry's cluster set, the camera
+    rays at seeded shutter times and moved into the object space of a
+    moving knot at each ray's own time (instance_windows with ``time``);
+    512^2, depth 6, MIS, wave2, strength 1, spectral (1 warm-up + 2 timed
+    passes): overflow 0, wave2_mt launches, finite non-zero radiance, one
+    profiled pass; then one pass under bvh (bvh_walk for the shell,
+    wave2_mt for the instances) with its mean radiance within 1e-3 of the
+    wave2 render's first pass, and at 128^2, strength 0, spectral off, the
+    radiance bit for bit that of the hall held still.
 
 Every line goes to raytracer_tpu_torch/_build/chip_smoke.log too (truncated
 at the start of a run), since the tail of the output may be cut.  The last
@@ -182,6 +211,7 @@ sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 import bench_mesh  # noqa: E402  (numpy-only scene generator)
 import torch_check_gradients as tcg  # noqa: E402
+import torch_check_features as tfx  # noqa: E402
 import torch_check_integrators as tci  # noqa: E402
 import torch_check_textures as tctex  # noqa: E402
 import torch_check_traverse as tct  # noqa: E402
@@ -241,15 +271,18 @@ def check(cond, msg):
     tct.check(cond, msg, log)
 
 
-def timed_render(vp, passes, smi, label):
+def timed_render(vp, passes, smi, label, first=None):
     """1 warm-up pass, then ``passes`` timed ones ending with the film on
     the host.  Returns (seconds, rays, shadow rays, overflow in the timed
-    passes, radiance), and adds the render's line to the summary."""
+    passes, radiance), and adds the render's line to the summary.  A list
+    ``first`` receives the mean radiance after the warm-up pass."""
     counts0 = launch_counts()
     t0 = time.perf_counter()
     vp.render(1)
     torch.cuda.synchronize()
     log(f"{label} warm-up pass: {time.perf_counter() - t0:.2f} s")
+    if first is not None:
+        first.append(float(vp.radiance().mean()))
     before = vp.progress()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -345,12 +378,12 @@ def engine_agrees(cs, o, d, any_tl, dev, label):
     return k_hit
 
 
-def camera_window(cam, dev):
+def camera_window(cam, dev, time=None):
     """w2.SUBWAVE camera rays of the driven frame at half its resolution, as
-    (n, 3) origins and directions."""
+    (n, 3) origins and directions; ``time``: each ray's shutter time."""
     side = int(w2.SUBWAVE ** 0.5)
     cx, cy, pixel_ids = pixel_grid(side, side, device=dev)
-    rays, _ = generate_rays(cam, cx, cy, make_stream(pixel_ids.to(torch.int64), 0, seed=0))
+    rays, _ = generate_rays(cam, cx, cy, make_stream(pixel_ids.to(torch.int64), 0, seed=0), time=time)
     return torch.stack(tuple(rays.origin), 1), torch.stack(tuple(rays.dir), 1)
 
 
@@ -378,9 +411,9 @@ def cluster_windows(cs, o, d, reach, dev, label):
     return windows
 
 
-def interior_render(path, dev, smi, label, textured):
+def interior_render(path, dev, smi, label, textured, passes=4):
     """Phases 12 and 13: load an interior scene, check what it holds, render
-    512^2 depth 6 MIS under wave2 (1 warm-up + 4 timed passes, one profiled)
+    512^2 depth 6 MIS under wave2 (1 warm-up + ``passes`` timed, one profiled)
     with the wave2_mt launches counted; before the render, the kernel and the
     engine against the twin on this scene's cluster set (cluster_windows).
     Returns (viewport, {"launches": ..., "windows": ...})."""
@@ -410,9 +443,9 @@ def interior_render(path, dev, smi, label, textured):
     windows = cluster_windows(cs, *camera_window(cam, dev), float(meta.scene_radius), dev, label)
     vp = Viewport(scene, meta, cam, ViewportParams(512, 512, seed=0), RenderParams(max_depth=6, mis=True), device=dev)
     w2.mt_chunks.launches = 0
-    _, _, _, overflow, radiance = timed_render(vp, 4, smi, f"{label} [wave2]")
+    _, _, _, overflow, radiance = timed_render(vp, passes, smi, f"{label} [wave2]")
     launches = w2.mt_chunks.launches
-    log(f"{label} [wave2]: wave2_mt launches {launches} in 5 passes; mean radiance {radiance.mean():.6f}")
+    log(f"{label} [wave2]: wave2_mt launches {launches} in {passes + 1} passes; mean radiance {radiance.mean():.6f}")
     check(launches > 0, f"the {label} render launched the wave2_mt kernel")
     check(overflow == 0, f"{label}: traversal overflow is 0")
     check(bool(np.isfinite(radiance).all()) and radiance.mean() > 0, f"{label}: radiance finite with non-zero mean")
@@ -483,20 +516,24 @@ def scene_bytes(scene) -> int:
     return sum(seen.values())
 
 
-def instance_windows(scene, meta, cam, dev, label):
+def instance_windows(scene, meta, cam, dev, label, time=None):
     """cluster_windows on the instanced scene's cluster sets: the shell's,
     and each geometry's with the camera rays moved into the object space of
     the instance of that geometry that the camera sees most (the rays each
-    instance query gives the kernel).  Returns {"<set> <window>": numbers}."""
-    o, d = camera_window(cam, dev)
+    instance query gives the kernel).  ``time`` (one a ray): the rays'
+    shutter times, for the camera's pose and each instance's.  Returns
+    {"<set> <window>": numbers}."""
+    o, d = camera_window(cam, dev, time)
     reach = float(meta.scene_radius)
     windows = {f"shell {w}": v for w, v in cluster_windows(scene.clusters, o, d, reach, dev, f"{label} shell").items()}
-    seen = traverse.scene_traverse(scene, vec(o, dev), vec(d, dev)).inst_id
+    seen = traverse.scene_traverse(scene, vec(o, dev), vec(d, dev), time=time).inst_id
     per_inst = torch.bincount(seen[seen >= 0].long(), minlength=scene.instances.count).tolist()
     for m, geom in enumerate(scene.mesh_geoms):
         i = max((i for i, mid in enumerate(scene.instances.mesh_ids) if mid == m), key=lambda i: per_inst[i])
-        lo, ld = traverse._instance_local_ray(scene, i, vec(o, dev), vec(d, dev))
+        lo, ld = traverse._instance_local_ray(scene, i, vec(o, dev), vec(d, dev), time)
         name = f"geometry {m} ({geom.tris.count} tris) in instance {i}"
+        if time is not None and any(float(c[i]) != 0.0 for c in scene.instances.vel):
+            name += " moving, each ray at its shutter time"
         log(f"{label}: {name} is what {per_inst[i]} of {o.shape[0]} camera rays see first")
         got = cluster_windows(geom.clusters, torch.stack(tuple(lo), 1), torch.stack(tuple(ld), 1), reach, dev,
                               f"{label} {name}")
@@ -532,18 +569,18 @@ def instanced_hall(baked, dev, smi):
     walk_windows = bvh_windows(scene, meta, cam, dev, "interior800k_inst_mis shell")
     vp = Viewport(scene, meta, cam, ViewportParams(512, 512, seed=0), RenderParams(max_depth=6, mis=True), device=dev)
     w2.mt_chunks.launches = 0
-    dt, _, _, overflow, radiance = timed_render(vp, 2, smi, "interior800k_inst_mis [wave2]")
+    dt, _, _, overflow, radiance = timed_render(vp, 1, smi, "interior800k_inst_mis [wave2]")
     launches = w2.mt_chunks.launches
     check(launches > 0 and overflow == 0, "interior800k_inst_mis: wave2_mt launched, overflow 0")
     check(bool(np.isfinite(radiance).all()) and radiance.mean() > 0, "interior800k_inst_mis: radiance finite, non-zero")
     device_ms = profiled(lambda: vp.render(1), "interior800k_inst_mis [wave2] pass", named=("wave2_mt",))
-    log(f"interior800k_inst_mis [wave2]: wave2_mt launches {launches} in 3 passes; device time "
-        f"{device_ms:.1f} ms of an unprofiled pass's {dt / 2 * 1e3:.1f} ms: idle {1 - device_ms / (dt / 2 * 1e3):.3f}")
+    log(f"interior800k_inst_mis [wave2]: wave2_mt launches {launches} in 2 passes; device time "
+        f"{device_ms:.1f} ms of an unprofiled pass's {dt * 1e3:.1f} ms: idle {1 - device_ms / (dt * 1e3):.3f}")
     ref = Viewport(baked.scene, baked.meta, baked.cam, ViewportParams(512, 512, seed=0),
-                   RenderParams(max_depth=6, mis=True), device=dev).render(3).radiance()
+                   RenderParams(max_depth=6, mis=True), device=dev).render(2).radiance()
     rel = abs(float(radiance.mean()) - float(ref.mean())) / float(ref.mean())
     log(f"interior800k_inst_mis: mean radiance {radiance.mean():.6f} against the baked hall's {ref.mean():.6f} "
-        f"after 3 passes each: relative difference {rel:.3e}")
+        f"after 2 passes each: relative difference {rel:.3e}")
     check(rel <= 0.01, "the instanced hall's mean radiance within 1% of the baked hall's")
     traverse.set_traversal_mode("bvh")
     bt.bvh_walk.launches = w2.mt_chunks.launches = 0
@@ -667,6 +704,77 @@ def integrator_phases(hall, inst_scene, mt, dev, smi):
     RENDERS.append(f"summary interior800k_mis count_traversal 512^2: {counted['s_per_pass'] * 1e3:.1f} ms a pass, "
                    f"total_box_tests {counted['box_tests']:.0f}, total_tri_tests {counted['tri_tests']:.0f}")
     log(f"phase 19 (debug renderer and counters) wall time {time.perf_counter() - t19:.1f} s")
+
+
+def fx_phase(dev, smi):
+    """Phase 20 (tools/torch_check_features.py): (a) each scene effect alone
+    on the card against the CPU port, and the spectral box's brightness
+    against RGB; (b) interior800k_fx_mis, the instanced hall with every
+    effect at 512^2, depth 6, MIS, wave2, strength 1, spectral (1 warm-up +
+    2 timed passes, one profiled); before it, wave2_mt and the engine
+    against the twin on the shell's and each geometry's cluster set, the
+    rays at their shutter times (a moving knot's object space); after it,
+    one pass under bvh against the warm-up pass, and strength 0 against the
+    hall held still at 128^2.  Returns (wave2_mt launches and windows of the
+    render, the bvh pass's bvh_walk launches)."""
+    t20 = time.perf_counter()
+    features, apart = tfx.device_against_cpu(dev, log)
+    s_mean, rgb_mean, s_pass = tfx.spectral_brightness(dev, log, smi=smi)
+    RENDERS.append(f"summary phase 20 a (64^2, card against the CPU port): ms a card pass "
+                   + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in features.items())
+                   + f"; values apart as without the feature {apart}"
+                   + f"; spectral Cornell 256^2, 16 passes: mean {s_mean:.6f} against RGB {rgb_mean:.6f}, "
+                     f"{s_pass * 1e3:.1f} ms a pass")
+    log(f"phase 20 a (features against the CPU) wall time {time.perf_counter() - t20:.1f} s")
+
+    label = "interior800k_fx_mis"
+    t0 = time.perf_counter()
+    path = torch_gen_interior.ensure_interior_fx(INTERIOR_DIR)
+    loaded, meta, loaded_cam = load_scene(path, strict=True, device=dev)
+    scene, cam = tfx.fx_effects(loaded, meta, loaded_cam, path, dev)
+    torch.cuda.synchronize()
+    inst = scene.instances
+    log(f"scene: {label} loaded in {time.perf_counter() - t0:.1f} s; {len(scene.mesh_geoms)} geometries, "
+        f"{inst.count} instances ({int((inst.vel.y != 0).sum())} moving), {scene.prims.count} prims, "
+        f"{scene.decals.count} decals, dispersive materials {scene.materials.dispersive.nonzero().flatten().tolist()}, "
+        f"atlas {tuple(scene.textures.data.shape)}, env_dist {tuple(scene.env_dist.density.shape)}; camera DoF "
+        f"{cam.enable_dof}, bokeh {cam.bokeh_shape}, shutter pose {cam.enable_motion_blur}")
+    check(len(scene.mesh_geoms) == 2 and inst.count == 31 and scene.decals.count == 3,
+          "the fx hall holds 2 geometries, 31 instances and 3 decals")
+    check(traverse.get_traversal_mode() == "auto", "the traversal mode is the default (auto -> wave2)")
+    times = tfx.shutter_times(w2.SUBWAVE, dev)
+    windows = instance_windows(scene, meta, cam, dev, label, time=times)
+    check(any("moving" in k for k in windows), "a window of rays in a moving instance's object space")
+    vp = Viewport(scene, meta, cam, ViewportParams(512, 512, seed=0, motion_blur_strength=1.0),
+                  RenderParams(max_depth=6, mis=True, spectral=True), device=dev)
+    w2.mt_chunks.launches = 0
+    first = []
+    dt, rays, shadow, overflow, radiance = timed_render(vp, 2, smi, f"{label} [wave2]", first=first)
+    launches = w2.mt_chunks.launches
+    check(launches > 0 and overflow == 0, f"{label}: wave2_mt launched, overflow 0")
+    check(bool(np.isfinite(radiance).all()) and radiance.mean() > 0, f"{label}: radiance finite, non-zero")
+    device_ms = profiled(lambda: vp.render(1), f"{label} [wave2] pass", named=("wave2_mt",))
+    log(f"{label} [wave2]: wave2_mt launches {launches} in 3 passes; device time {device_ms:.1f} ms of an "
+        f"unprofiled pass's {dt / 2 * 1e3:.1f} ms: idle {1 - device_ms / (dt / 2 * 1e3):.3f}")
+
+    traverse.set_traversal_mode("bvh")
+    bt.bvh_walk.launches = w2.mt_chunks.launches = 0
+    bvp = Viewport(scene, meta, cam, ViewportParams(512, 512, seed=0, motion_blur_strength=1.0),
+                   RenderParams(max_depth=6, mis=True, spectral=True), device=dev)
+    t0 = time.perf_counter()
+    bmean = float(bvp.render(1).radiance().mean())
+    both = (bt.bvh_walk.launches, w2.mt_chunks.launches)
+    traverse.set_traversal_mode("auto")
+    rel = abs(bmean - first[0]) / first[0]
+    log(f"{label} [bvh] one pass: {(time.perf_counter() - t0) * 1e3:.1f} ms; bvh_walk launches {both[0]} (the "
+        f"shell), wave2_mt launches {both[1]} (the instances); mean radiance {bmean:.6f} against the wave2 "
+        f"render's first pass {first[0]:.6f}: relative difference {rel:.3e}")
+    check(both[0] > 0 and both[1] > 0, "under bvh the shell launched bvh_walk and the instances wave2_mt")
+    check(rel <= 1e-3, f"{label}: the bvh pass's mean radiance within 1e-3 of the wave2 render's")
+    tfx.zero_strength_is_still(scene, meta, cam, dev, log)
+    check(traverse.get_traversal_mode() == "auto", "the traversal mode is back to auto")
+    log(f"phase 20 (scene effects) wall time {time.perf_counter() - t20:.1f} s")
+    return (launches, windows), both[0]
 
 
 def log_bvh_builds():
@@ -825,7 +933,7 @@ def run():
     check(small.scene.textures is not None and small.scene.env_dist is not None,
           "the small textured scene has its atlas and its env distribution")
     vp, mt["by_path"]["interior800k_tex_mis"] = interior_render(
-        torch_gen_interior.ensure_interior_tex(INTERIOR_DIR), dev, smi, "interior800k_tex_mis", True)
+        torch_gen_interior.ensure_interior_tex(INTERIOR_DIR), dev, smi, "interior800k_tex_mis", True, passes=2)
     t0 = time.perf_counter()
     image = vp.image()
     log(f"interior800k_tex_mis: Viewport.image() in {(time.perf_counter() - t0) * 1e3:.1f} ms: {image.shape} "
@@ -862,6 +970,13 @@ def run():
                                              "windows": by_path["interior800k_mis"]["windows"]}
 
     integrator_phases(hall, inst_scene, mt, dev, smi)
+
+    # --- 20. the scene effects, alone and on the hall ----------------------------
+    (fx_launches, fx_windows), fx_walk = fx_phase(dev, smi)
+    mt["by_path"]["interior800k_fx_mis"] = {"launches": fx_launches, "windows": fx_windows}
+    by_path["interior800k_fx_mis (shell under bvh, one pass)"] = {
+        "launches": fx_walk, "windows_of": "interior800k_inst_mis (shell under bvh, one pass)",
+        "windows": walk_windows}
     mt["max_abs_err"] = max(w["max_abs_err"] for path in mt["by_path"].values() for w in path["windows"].values())
 
     top = by_path["mesh200k_mis"]["windows"]["bounce"]["closest"]

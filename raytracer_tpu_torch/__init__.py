@@ -8,7 +8,10 @@ So far: the MIS path tracer on analytic scenes and on triangle meshes, the
 mesh through a selectable traversal backend (the wave2 sort-join engine by
 default; the binned-wavefront ``wave`` engine; the skip-link ``bvh`` walk;
 the block-candidate ``sorted-pallas`` path; the per-ray ``cluster`` path),
-differentiable by autograd through ``render.renderer.trace_rows``:
+differentiable by autograd through ``render.renderer.trace_rows``; the
+light tracer, VCM and the debug renderer; and the scene effects (motion
+blur of prims, instances and the camera, bokeh shapes, decals, spectral
+rendering with dispersive materials):
 
     render/      Viewport, render_passes, film accumulation, trace_rows
     parallel/    train_step (one-device material-gradient step)
@@ -18,6 +21,7 @@ differentiable by autograd through ``render.renderer.trace_rows``:
                  block-candidate and per-ray cluster traversal, BSDF, lights,
                  materials, the launch probe, the CUDA kernel build
     math/        SoA vector math, sampling, microfacet, fresnel, transforms
+    color/       sRGB / tonemapping, the spectral resolve
     sampler/     counter-based deterministic sample streams (+ Halton)
     io/          reference-format JSON scene loading, OBJ meshes
     native/      the C++ BVH builder (built with g++ at first use)

@@ -5,6 +5,8 @@ One traversal and one shading-frame evaluation per pixel; the mode picks
 which quantity becomes the pixel colour: headlight shading, hit id, depth,
 position, normals / tangents / bitangents, texcoords, the resolved material
 parameters, or the traversal work (box and triangle tests) per ray.
+The material modes show the table's parameters without decals, as in the
+reference.
 """
 
 from __future__ import annotations

@@ -10,6 +10,8 @@ toward the camera x visibility x the camera's importance
 One pass traces W*H light paths, so the film's ``sum / passes``
 normalization is the path tracer's.  The bounce loop is a python loop whose
 per-depth splats are stacked and scatter-added into the film in one shot.
+Its shading passes no position to ``resolve_material``, so decals do not
+apply, as in the reference (the path tracer and VCM apply them).
 """
 
 from __future__ import annotations

@@ -6,8 +6,11 @@ masks.  With MIS and one shadow ray per lane, each bounce's shadow query is
 traced in ONE wavefront with the next bounce's closest-hit rays: the shadow
 lanes carry a negative limit and keep any-hit semantics in the wave2
 engine.  ``RenderParams.count_traversal`` adds each live ray's box and
-triangle tests (``scene_traversal_cost``) to the counters.  Spectral
-rendering waits (ROADMAP).
+triangle tests (``scene_traversal_cost``) to the counters.  A per-ray
+shutter ``time`` (motion blur) holds along the whole path.  In spectral
+mode each path draws one hero wavelength; dispersive materials refract by
+it, and the first dispersive scatter of a path weights its throughput once
+by the wavelength's CIE response (``color/spectrum.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from ..math.sampling import (
     spherical_quad_prepare,
     world_to_local,
 )
+from ..color.spectrum import rgb_resolve, sample_wavelength, sample_wavelength_stratified
 from ..math.vec import Vec3, clip, dot, max_component, where as vwhere
 from ..ops import bsdf as bsdf_ops
 from ..ops.intersect import BIG, Hits, PrimFrame
@@ -57,7 +61,9 @@ class RenderParams:
     min_rr_depth: int = 1
     mis: bool = True  # False => naive PathTracer semantics
     light_strategy: str = "single"  # "single" | "all"
-    spectral: bool = False  # not ported yet
+    # hero-wavelength spectral rendering: each path samples one wavelength;
+    # dispersive dielectrics refract by it and collapse the path to it
+    spectral: bool = False
     # opt-in per-ray traversal-work counters: an extra slab pass a bounce
     count_traversal: bool = False
 
@@ -134,7 +140,7 @@ def _eval_global_lights(scene: SceneData, meta: SceneMeta, direction: Vec3, last
 
 def _sample_lights_nee(scene: SceneData, meta: SceneMeta, params: RenderParams, frame: PrimFrame,
                        mp, wo_local, pick_prob, is_last: bool, stream: SampleStream,
-                       active=None, defer=False):
+                       time=None, active=None, defer=False):
     """NEE: 'single' picks one light uniformly, 'all' loops every light.
 
     ``defer=False`` traces the shadow ray here and returns (contribution,
@@ -185,7 +191,7 @@ def _sample_lights_nee(scene: SceneData, meta: SceneMeta, params: RenderParams, 
         if defer:
             return contrib, Rays(origin=shadow_origin, dir=ill.dir_to_light), cap, n_shadow, stream
 
-        occluded, sh_ovf = scene_occluded(scene, shadow_origin, ill.dir_to_light, cap)
+        occluded, sh_ovf = scene_occluded(scene, shadow_origin, ill.dir_to_light, cap, time=time)
         n_overflow = n_overflow + (lit & sh_ovf).to(torch.float32).sum()
         total = total + contrib * (~occluded).to(torch.float32)
     return total, n_shadow, n_overflow, stream
@@ -198,20 +204,29 @@ def _take(hits: Hits, sl: slice) -> Hits:
 
 
 def trace_radiance(scene: SceneData, meta: SceneMeta, rays: Rays, stream: SampleStream,
-                   params: RenderParams):
-    """Trace a wavefront to completion. Returns (radiance per ray, counters)."""
-    if params.spectral:
-        raise NotImplementedError("spectral rendering waits (ROADMAP queue 1 item 5)")
+                   params: RenderParams, time=None, pass_idx: int | None = None):
+    """Trace a wavefront to completion. Returns (radiance per ray, counters).
+
+    ``time`` (N,): each ray's shutter time, the same along its path (None =
+    static).  ``pass_idx``: in spectral mode, the stratum of the hero
+    wavelength (``sample_wavelength_stratified``); None draws it from the
+    whole range."""
     n = rays.origin.x.shape
     dev = rays.origin.x.device
     pick_prob = _light_pick_probability(meta, params)
     fused_shadow = params.mis and not (params.light_strategy == "all" and meta.n_lights > 1)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
 
+    wavelength = dispersed = None
+    if params.spectral:
+        u_l, stream = next_1d(stream)
+        wavelength = sample_wavelength(u_l) if pass_idx is None else sample_wavelength_stratified(u_l, pass_idx)
+        dispersed = torch.zeros(n, dtype=torch.bool, device=dev)
+
     origin, direction = rays.origin, rays.dir
     # camera segment traced up front; every later segment is traced fused
     # with the preceding bounce's shadow ray
-    hits = scene_traverse(scene, origin, direction)
+    hits = scene_traverse(scene, origin, direction, time=time)
     throughput = Vec3.ones(n, dev)
     result = Vec3.zeros(n, dev)
     alive = torch.ones(n, dtype=torch.bool, device=dev)
@@ -226,7 +241,7 @@ def trace_radiance(scene: SceneData, meta: SceneMeta, rays: Rays, stream: Sample
     # the final step only resolves the last segment's miss / light hit
     for depth in range(params.max_depth + 1):
         if params.count_traversal:
-            bt, tt = scene_traversal_cost(scene, origin, direction)
+            bt, tt = scene_traversal_cost(scene, origin, direction, time=time)
             live = alive.to(torch.float32)
             num_box = num_box + (bt * live).sum()
             num_tri = num_tri + (tt * live).sum()
@@ -240,7 +255,7 @@ def trace_radiance(scene: SceneData, meta: SceneMeta, rays: Rays, stream: Sample
         result = result + throughput * bg * (alive & miss).to(torch.float32)
 
         # --- shading frame at the hit
-        frame = apply_normal_map(scene, scene_hit_frame(scene, hits, origin, direction))
+        frame = apply_normal_map(scene, scene_hit_frame(scene, hits, origin, direction, time=time))
 
         # --- direct light hit
         hit_light = alive & (~miss) & (frame.light_id >= 0)
@@ -268,7 +283,8 @@ def trace_radiance(scene: SceneData, meta: SceneMeta, rays: Rays, stream: Sample
 
         # --- surviving shading lanes
         survive = alive & (~miss) & (~hit_light)
-        mp = resolve_material(scene, frame.material_id, frame.tex_u, frame.tex_v)
+        mp = resolve_material(scene, frame.material_id, frame.tex_u, frame.tex_v,
+                              wavelength=wavelength, position=frame.position)
         result = result + throughput * mp.emission * survive.to(torch.float32)
         wo_local = world_to_local(-direction, frame.tangent, frame.bitangent, frame.normal)
 
@@ -279,12 +295,12 @@ def trace_radiance(scene: SceneData, meta: SceneMeta, rays: Rays, stream: Sample
         if fused_shadow:
             nee_c, shadow_rays, shadow_cap, n_sh, stream = _sample_lights_nee(
                 scene, meta, params, frame, mp, wo_local, pick_prob, is_last, stream,
-                active=survive, defer=True)
+                time=time, active=survive, defer=True)
             shadow = (nee_c, shadow_rays, shadow_cap)
             num_shadow = num_shadow + n_sh
         elif params.mis:
             nee, n_sh, n_sh_ovf, stream = _sample_lights_nee(
-                scene, meta, params, frame, mp, wo_local, pick_prob, is_last, stream, active=survive)
+                scene, meta, params, frame, mp, wo_local, pick_prob, is_last, stream, time=time, active=survive)
             num_shadow = num_shadow + n_sh
             num_overflow = num_overflow + n_sh_ovf
             result = result + throughput * nee * survive.to(torch.float32)
@@ -308,6 +324,13 @@ def trace_radiance(scene: SceneData, meta: SceneMeta, rays: Rays, stream: Sample
         throughput = throughput * vwhere(survive, smp.weight, Vec3.ones(n, dev))
         survive = survive & (max_component(throughput) > 1e-7)
 
+        # --- the hero wavelength collapses at the first dispersive scatter:
+        # the throughput takes its CIE -> RGB weight once
+        if params.spectral:
+            collapse = survive & mp.dispersive & (~dispersed)
+            throughput = vwhere(collapse, throughput * Vec3(*rgb_resolve(wavelength)), throughput)
+            dispersed = dispersed | (survive & mp.dispersive)
+
         new_origin = vwhere(survive, frame.position + wi_world * RAY_OFFSET, origin)
         new_dir = vwhere(survive, wi_world, direction)
 
@@ -324,14 +347,14 @@ def trace_radiance(scene: SceneData, meta: SceneMeta, rays: Rays, stream: Sample
                                  torch.ones(shadow_cap.shape[0], dtype=torch.bool, device=dev)])
             mhits = scene_traverse(scene, catv(new_origin, shadow_rays.origin),
                                    catv(new_dir, shadow_rays.dir), t_max=cat(next_cap, shadow_cap),
-                                   any_hit=ah_mask)
+                                   time=None if time is None else cat(time, time), any_hit=ah_mask)
             hits_next = _take(mhits, slice(None, nn))
             occluded = mhits.t[nn:] < shadow_cap
             num_overflow = num_overflow + ((shadow_cap > 0.0) & mhits.overflow[nn:]).to(torch.float32).sum()
             nee_w = ((shadow_cap > 0.0) & (~occluded)).to(torch.float32)
             result = result + throughput_pre * nee_c * (nee_w * survive_pre.to(torch.float32))
         else:
-            hits_next = scene_traverse(scene, new_origin, new_dir, t_max=next_cap)
+            hits_next = scene_traverse(scene, new_origin, new_dir, t_max=next_cap, time=time)
 
         last_pdf = torch.where(survive, smp.pdf, last_pdf)
         last_specular = torch.where(survive, smp.specular, last_specular)

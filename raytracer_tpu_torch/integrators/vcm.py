@@ -13,7 +13,8 @@ ways:
    within the merging radius (vertex merging).
 
 All estimators are combined with the recursive dVC / dVM / dVCM MIS
-quantities (balance heuristic, ``Mis(x) = x``).
+quantities (balance heuristic, ``Mis(x) = x``).  Both sub-paths shade with
+the scene's decals.
 
 Departures that change no result: shadow queries whose answer no lane uses
 (a connection masked by its length, cosines or BSDF) go with limit 0, which
@@ -206,7 +207,7 @@ def _trace_light_phase(scene: SceneData, meta: SceneMeta, cam: Camera, stream: S
         hits = hits._replace(t=torch.clamp(hits.t, 0.0, 1e12))
         frame = _shade_frame(scene, hits, state.origin, state.direction)
         hit_surface = state.alive & (~miss) & (frame.light_id < 0)
-        mp = resolve_material(scene, frame.material_id, frame.tex_u, frame.tex_v)
+        mp = resolve_material(scene, frame.material_id, frame.tex_u, frame.tex_v, position=frame.position)
 
         # MIS update at the hit
         cos_in = torch.abs(dot(state.direction, frame.normal))
@@ -406,7 +407,7 @@ def render_pass_vcm(scene: SceneData, meta: SceneMeta, cam: Camera, film, pass_i
         miss = hits.t >= BIG * 0.5
         hits = hits._replace(t=torch.clamp(hits.t, 0.0, 1e12))
         frame = _shade_frame(scene, hits, state.origin, state.direction)
-        mp = resolve_material(scene, frame.material_id, frame.tex_u, frame.tex_v)
+        mp = resolve_material(scene, frame.material_id, frame.tex_u, frame.tex_v, position=frame.position)
 
         # MIS update at the hit
         cos_in = torch.abs(dot(state.direction, frame.normal))

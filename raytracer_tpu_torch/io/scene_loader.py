@@ -2,7 +2,8 @@
 ``raytracer_tpu/io/scene_loader.py``).
 
 Loads the ``textures`` block (bitmap, checkerboard, noise, mix), materials
-with their six texture references, analytic objects (sphere, box,
+with their six texture references and the dispersion keys (``dispersive``,
+``abbe``, ``dispersionC``, ``dispersionD``), analytic objects (sphere, box,
 rect/plane), baked OBJ meshes (through the port's ``io/obj.py``), area /
 sphere / point / spot / directional / background lights with an optional
 ``texture``, and the camera.  Uncompressed 24-bit BMP files are read with
@@ -177,6 +178,11 @@ def _parse_materials(doc: dict, builder: SceneBuilder, tex: _TexResolver):
                 normal_tex=tex.get(m, "normalMap"),
                 mask_tex=tex.get(m, "maskMap"),
                 normal_strength=float(m.get("normalMapStrength", 1.0)),
+                dispersive=bool(m.get("dispersive", False)),
+                abbe=float(m.get("abbe", 30.0)),
+                dispersion_c=float(m.get("dispersionC", 0.00420)),
+                dispersion_d=float(m.get("dispersionD", 0.0)),
+                disp_use_abbe="abbe" in m,
             )
         )
 

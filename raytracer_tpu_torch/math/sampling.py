@@ -45,6 +45,35 @@ def sample_circle(u1, u2):
     return r * torch.sin(theta), r * torch.cos(theta)
 
 
+_HEX_X = (-1.0, 0.5, 0.5, -1.0)
+_HEX_Y = (0.0, 0.8660254, -0.8660254, 0.0)
+
+
+def sample_hexagon(u1, u2, u3):
+    """Uniform point on a regular hexagon: ``u3`` picks one of three
+    rhombi, (``u1``, ``u2``) place the point in it."""
+    table = lambda v: torch.tensor(v, dtype=torch.float32, device=u1.device)
+    hx, hy = table(_HEX_X), table(_HEX_Y)
+    i = torch.clamp((3.0 * u3).to(torch.int32), 0, 2).long()
+    return u1 * hx[i] + u2 * hx[i + 1], u1 * hy[i] + u2 * hy[i + 1]
+
+
+def sample_regular_polygon(n_blades: int, u1, u2, u3):
+    """Uniform point on a regular n-gon (at least a triangle): ``u3`` picks
+    a triangular sector, (``u1``, ``u2``) a point in it."""
+    n = float(max(n_blades, 3))
+    sector = torch.floor(u3 * n)
+    a0 = TWO_PI * sector / n
+    a1 = TWO_PI * (sector + 1.0) / n
+    t = torch.sqrt(u1)
+    b0, b1 = 1.0 - t, u2 * t
+    return b0 * torch.cos(a0) + b1 * torch.cos(a1), b0 * torch.sin(a0) + b1 * torch.sin(a1)
+
+
+def sample_square(u1, u2):
+    return 2.0 * u1 - 1.0, 2.0 * u2 - 1.0
+
+
 def sample_sphere(u1, u2) -> Vec3:
     """Uniform direction on the unit sphere."""
     z = 2.0 * u2 - 1.0

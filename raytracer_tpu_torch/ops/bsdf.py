@@ -46,6 +46,9 @@ class MatParams(NamedTuple):
     metalness: torch.Tensor
     ior: torch.Tensor
     k: torch.Tensor
+    # lanes whose IoR depends on the wavelength (the path's hero wavelength
+    # collapses when it scatters off one, in spectral mode)
+    dispersive: torch.Tensor = None
 
 
 class BsdfSample(NamedTuple):

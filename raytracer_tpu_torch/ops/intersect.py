@@ -93,21 +93,31 @@ def _prim_at(v: Vec3, i: int) -> Vec3:
     return Vec3(v.x[i], v.y[i], v.z[i])
 
 
-def intersect_prims(prims: Primitives, origin: Vec3, direction: Vec3, t_max):
-    """Closest hit over all analytic prims. Returns (t, prim_id)."""
+def intersect_prims(prims: Primitives, origin: Vec3, direction: Vec3, t_max, time=None):
+    """Closest hit over all analytic prims. Returns (t, prim_id).  ``time``
+    (N,) is each ray's shutter time: a prim's translation is then
+    ``trans + vel * time`` (motion blur); None = static."""
     n = origin.x.shape
     dev = origin.x.device
     best_t = torch.full(n, BIG, dtype=torch.float32, device=dev)
     best_id = torch.full(n, -1, dtype=torch.int32, device=dev)
     for i in range(prims.count):
         rot = Rot3(_prim_at(prims.rot.r0, i), _prim_at(prims.rot.r1, i), _prim_at(prims.rot.r2, i))
-        o, d = _local_ray(rot, _prim_at(prims.trans, i), origin, direction)
+        trans = _prim_at(prims.trans, i)
+        if time is not None:
+            trans = trans + _prim_at(prims.vel, i) * time
+        o, d = _local_ray(rot, trans, origin, direction)
         t = _prim_hit_distance(prims.kind[i], o, d, _prim_at(prims.param, i), HIT_EPS,
                                torch.minimum(best_t, t_max))
         closer = t < best_t
         best_t = torch.where(closer, t, best_t)
         best_id = torch.where(closer, i, best_id)
     return best_t, best_id
+
+
+def occluded_prims(prims: Primitives, origin: Vec3, direction: Vec3, t_max, time=None):
+    """Any-hit shadow query over the analytic prims."""
+    return intersect_prims(prims, origin, direction, t_max, time)[0] < t_max
 
 
 class PrimFrame(NamedTuple):
@@ -142,16 +152,20 @@ def _gather_vec3(v: Vec3, idx) -> Vec3:
     return Vec3(v.x[idx], v.y[idx], v.z[idx])
 
 
-def eval_prim_frame(prims: Primitives, prim_id, origin: Vec3, direction: Vec3, t) -> PrimFrame:
+def eval_prim_frame(prims: Primitives, prim_id, origin: Vec3, direction: Vec3, t, time=None) -> PrimFrame:
     """Position / normal / uv / tangent frame at the closest analytic hits:
     sphere normal p/r with spherical uv, box face normal by dominant axis,
-    rect +Z.  Miss lanes (t = BIG) are clamped so every path stays finite."""
+    rect +Z.  Miss lanes (t = BIG) are clamped so every path stays finite.
+    ``time`` (N,): each ray's shutter time, so that the frame is taken in
+    the prim's pose at that time (``trans + vel * time``)."""
     from ..math.sampling import build_onb
 
     idx = torch.clamp_min(prim_id, 0).long()
     kind = prims.kind[idx]
     rot = Rot3(_gather_vec3(prims.rot.r0, idx), _gather_vec3(prims.rot.r1, idx), _gather_vec3(prims.rot.r2, idx))
     trans = _gather_vec3(prims.trans, idx)
+    if time is not None:
+        trans = trans + _gather_vec3(prims.vel, idx) * time
     param = _gather_vec3(prims.param, idx)
     t = torch.clamp(t, 0.0, 1e12)
     pos_world = origin + direction * t

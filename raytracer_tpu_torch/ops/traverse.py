@@ -147,14 +147,20 @@ def _instance_rot(scene: SceneData, i: int):
 
 
 def _instance_local_ray(scene: SceneData, i: int, origin: Vec3, direction: Vec3, time=None):
-    """World ray -> instance i's object space: the rigid inverse.  ``time``
-    stays None until motion blur is ported."""
+    """World ray -> instance i's object space: the rigid inverse of its
+    pose at each ray's shutter ``time`` (translation ``trans + vel *
+    time``; None = static)."""
     rot, trans = _instance_rot(scene, i)
+    if time is not None:
+        vel = scene.instances.vel
+        trans = trans + Vec3(vel.x[i], vel.y[i], vel.z[i]) * time
     return rot.to_local(origin - trans), rot.to_local(direction)
 
 
-def scene_traverse(scene: SceneData, origin: Vec3, direction: Vec3, t_max=None, any_hit=None) -> Hits:
-    """Closest hit.  ``any_hit`` (N,) bool, optional: lanes that only need
+def scene_traverse(scene: SceneData, origin: Vec3, direction: Vec3, t_max=None, time=None, any_hit=None) -> Hits:
+    """Closest hit.  ``time`` (N,): each ray's shutter time (motion blur of
+    analytic prims and instances; baked world-space triangles are static);
+    None = static.  ``any_hit`` (N,) bool, optional: lanes that only need
     an occlusion answer (shadow rays in a fused wavefront) — under wave2
     their mesh query keeps any-hit early exit (t collapses to 0 on the
     first hit)."""
@@ -162,7 +168,7 @@ def scene_traverse(scene: SceneData, origin: Vec3, direction: Vec3, t_max=None, 
     dev = origin.x.device
     if t_max is None:
         t_max = torch.full(n, BIG, dtype=torch.float32, device=dev)
-    t_p, pid = intersect_prims(scene.prims, origin, direction, t_max)
+    t_p, pid = intersect_prims(scene.prims, origin, direction, t_max, time)
     mode = _resolved_mode(scene)
     z = torch.zeros(n, dtype=torch.float32, device=dev)
     best = {"t": t_p, "prim": pid, "tri": torch.full(n, -1, dtype=torch.int32, device=dev), "u": z, "v": z,
@@ -198,12 +204,13 @@ def scene_traverse(scene: SceneData, origin: Vec3, direction: Vec3, t_max=None, 
         # their t_max.  (The reference caps every lane by the best t alone,
         # which is BIG on a lane nothing has hit yet: a shadow ray is then
         # occluded by an instance BEHIND its light.  Closest-hit lanes keep
-        # the reference's cap, so the ray counters agree with it.)
+        # the reference's cap, so the ray counters agree with it.  Under
+        # motion blur each lane meets the instance at its own time.)
         inst_mode = "wave2" if mode == "bvh" else mode  # instanced meshes keep no BVH: the auto engine
         o_w, d_w = _detached(origin, direction)
         for i, mid in enumerate(scene.instances.mesh_ids):
             geom = scene.mesh_geoms[mid]
-            o_l, d_l = _instance_local_ray(scene, i, o_w, d_w)
+            o_l, d_l = _instance_local_ray(scene, i, o_w, d_w, time)
             cap = best["t"] if any_hit is None else torch.where(any_hit, torch.minimum(best["t"], t_max), best["t"])
             t_t, tid, tu, tv, ovf, attr = _cs_closest(inst_mode, geom.clusters, None, geom.tris, o_l, d_l,
                                                       signed(cap))
@@ -265,13 +272,15 @@ def scene_traversal_cost(scene: SceneData, origin: Vec3, direction: Vec3, time=N
     return box_tests, tri_tests
 
 
-def scene_hit_frame(scene: SceneData, hits: Hits, origin: Vec3, direction: Vec3) -> PrimFrame:
+def scene_hit_frame(scene: SceneData, hits: Hits, origin: Vec3, direction: Vec3, time=None) -> PrimFrame:
     """Shading frame for any hit kind: analytic prim, baked triangle or
     instanced triangle.  Triangle frames come from the traversal's
     interpolated ``attr`` channels when every mesh's backend emitted them
     (wave2; object-space normals of instanced hits are rotated to world
-    before normalizing), else from a gather of each triangle table."""
-    frame = eval_prim_frame(scene.prims, hits.prim_id, origin, direction, hits.t)
+    before normalizing), else from a gather of each triangle table.
+    ``time``: each ray's shutter time, for the pose of a moving prim (an
+    instance moves without turning, so its frame needs no time)."""
+    frame = eval_prim_frame(scene.prims, hits.prim_id, origin, direction, hits.t, time=time)
     is_tri = hits.tri_id >= 0
     inst = hits.inst_id if hits.inst_id is not None else torch.full_like(hits.tri_id, -1)
 
@@ -315,11 +324,12 @@ def scene_hit_frame(scene: SceneData, hits: Hits, origin: Vec3, direction: Vec3)
     return frame
 
 
-def scene_occluded(scene: SceneData, origin: Vec3, direction: Vec3, t_max):
-    """Any-hit shadow query.  Returns (occluded, overflow): ``overflow``
-    marks shadow rays whose mesh query the backend may have truncated."""
+def scene_occluded(scene: SceneData, origin: Vec3, direction: Vec3, t_max, time=None):
+    """Any-hit shadow query at each ray's shutter ``time`` (None = static).
+    Returns (occluded, overflow): ``overflow`` marks shadow rays whose mesh
+    query the backend may have truncated."""
     n = origin.x.shape
-    t_p, _ = intersect_prims(scene.prims, origin, direction, t_max)
+    t_p, _ = intersect_prims(scene.prims, origin, direction, t_max, time)
     occ = t_p < t_max
     overflow = torch.zeros(n, dtype=torch.bool, device=origin.x.device)
     mode = _resolved_mode(scene)
@@ -332,7 +342,7 @@ def scene_occluded(scene: SceneData, origin: Vec3, direction: Vec3, t_max):
         o_w, d_w = _detached(origin, direction)
         for i, mid in enumerate(scene.instances.mesh_ids):
             geom = scene.mesh_geoms[mid]
-            o_l, d_l = _instance_local_ray(scene, i, o_w, d_w)
+            o_l, d_l = _instance_local_ray(scene, i, o_w, d_w, time)
             # already-occluded rays query with limit 0 (the early-out analogue)
             lim = torch.where(occ, 0.0, t_max * torch.ones_like(origin.x))
             mesh_occ, ovf = _cs_occluded(inst_mode, geom.clusters, None, geom.tris, o_l, d_l, lim)

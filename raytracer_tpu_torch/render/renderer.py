@@ -8,7 +8,7 @@ Every sample is a pure function of (pixel id, pass, dim, seed), so renders
 are reproducible and match the JAX package's sample streams bit for bit.
 ``Viewport.image()`` runs the postprocess pipeline on the device and
 returns the uint8 sRGB image on the host.  Checkpointing and adaptive
-rendering wait (ROADMAP queue 1, item 17).
+rendering wait (ROADMAP queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from ..sampler.sampler import (
     halton_frame_vector,
     hash_u32,
     make_stream,
+    next_1d,
     u32_to_unit_float,
 )
 from ..scene.camera import generate_rays
@@ -43,6 +44,9 @@ class ViewportParams:
     use_low_discrepancy: bool = True
     use_blue_noise: bool = True
     seed: int = 0
+    # shutter-open fraction: each pixel's ray time is u * strength (motion
+    # blur; 0 = a static frame, and no sample dimension is drawn for it)
+    motion_blur_strength: float = 0.0
 
 
 def pixel_grid(width: int, height: int, rows: int | None = None, row0: int = 0, *, device):
@@ -78,8 +82,12 @@ def trace_rows(scene: SceneData, meta: SceneMeta, cam: Camera, pass_idx: int, ha
     if halton is not None and vp.use_blue_noise:
         blue = blue_noise_for_pixels(pixel_ids.to(torch.int64), vp.width)
     stream = make_stream(pixel_ids.to(torch.int64), pass_idx, seed=vp.seed, halton=halton, blue=blue)
-    rays, stream = generate_rays(cam, cx, cy, stream)
-    return trace_radiance(scene, meta, rays, stream, params)
+    time = None
+    if vp.motion_blur_strength > 0.0:
+        u_t, stream = next_1d(stream)
+        time = u_t * vp.motion_blur_strength
+    rays, stream = generate_rays(cam, cx, cy, stream, time=time)
+    return trace_radiance(scene, meta, rays, stream, params, time=time, pass_idx=pass_idx)
 
 
 @torch.no_grad()

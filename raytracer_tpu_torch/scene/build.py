@@ -4,7 +4,8 @@
 ``SceneBuilder.build(device)`` takes the device explicitly.  Baked meshes
 get their skip-link BVH and cluster set; a mesh registered with
 ``add_mesh_geometry`` is stored once in object space and placed by rigid
-instances.  Decals wait (ROADMAP).
+instances.  Prims and instances carry a linear velocity over the shutter
+(motion blur); decals are sorted by descending ``order``.
 """
 
 from __future__ import annotations
@@ -37,6 +38,11 @@ class MaterialDesc:
     normal_tex: int = T.INVALID_ID
     mask_tex: int = T.INVALID_ID
     normal_strength: float = 1.0
+    dispersive: bool = False  # wavelength-dependent IoR (spectral mode only)
+    abbe: float = 30.0  # Abbe number V_d (lower = stronger dispersion)
+    dispersion_c: float = 0.00420  # Cauchy C, the BK7 default
+    dispersion_d: float = 0.0
+    disp_use_abbe: bool = False  # True => the (IoR, abbe) Cauchy form
 
 
 @dataclass
@@ -46,7 +52,24 @@ class PrimDesc:
     param: tuple  # (radius,0,0) or half-size
     material_id: int
     light_id: int = T.INVALID_ID
+    velocity: tuple = (0.0, 0.0, 0.0)  # linear motion over the shutter (t in [0, 1])
     uv_scale: tuple = (1.0, 1.0)
+
+
+@dataclass
+class DecalDesc:
+    """A projected-texture decal: a box (``half_size`` about the
+    transform) whose inside gets the decal's base color and roughness."""
+
+    transform: RigidTransform
+    half_size: tuple = (0.5, 0.5, 0.5)
+    base_color: tuple = (1.0, 1.0, 1.0)
+    base_color_tex: int = T.INVALID_ID
+    alpha_tex: int = T.INVALID_ID
+    roughness: float = 0.5
+    alpha_min: float = 0.0
+    alpha_max: float = 1.0
+    order: int = 0  # applied from the highest order to the lowest: the lowest ends on top
 
 
 @dataclass
@@ -131,6 +154,7 @@ class SceneBuilder:
         self.materials: list[MaterialDesc] = []
         self.prims: list[PrimDesc] = []
         self.lights: list[LightDesc] = []
+        self.decals: list[DecalDesc] = []
         self._mat_index: dict[str, int] = {}
         self._tri_v = []  # (n,3,3) world-space vertex positions
         self._tri_n = []  # (n,3,3) vertex normals
@@ -160,15 +184,19 @@ class SceneBuilder:
         return self._mat_index["__default__"]
 
     # --- geometry ----------------------------------------------------------------
-    def add_sphere(self, transform: RigidTransform, radius: float, material_id: int, light_id=T.INVALID_ID):
-        self.prims.append(PrimDesc(T.PRIM_SPHERE, transform, (radius, 0.0, 0.0), material_id, light_id))
+    def add_sphere(self, transform: RigidTransform, radius: float, material_id: int, light_id=T.INVALID_ID,
+                   velocity=(0.0, 0.0, 0.0)):
+        self.prims.append(PrimDesc(T.PRIM_SPHERE, transform, (radius, 0.0, 0.0), material_id, light_id, velocity))
 
-    def add_box(self, transform: RigidTransform, half_size, material_id: int, light_id=T.INVALID_ID):
-        self.prims.append(PrimDesc(T.PRIM_BOX, transform, tuple(half_size), material_id, light_id))
+    def add_box(self, transform: RigidTransform, half_size, material_id: int, light_id=T.INVALID_ID,
+                velocity=(0.0, 0.0, 0.0)):
+        self.prims.append(PrimDesc(T.PRIM_BOX, transform, tuple(half_size), material_id, light_id, velocity))
 
-    def add_rect(self, transform: RigidTransform, half_size2, material_id: int, light_id=T.INVALID_ID, uv_scale=(1.0, 1.0)):
+    def add_rect(self, transform: RigidTransform, half_size2, material_id: int, light_id=T.INVALID_ID,
+                 velocity=(0.0, 0.0, 0.0), uv_scale=(1.0, 1.0)):
         sx, sy = half_size2
-        self.prims.append(PrimDesc(T.PRIM_RECT, transform, (sx, sy, 0.0), material_id, light_id, tuple(uv_scale)))
+        self.prims.append(PrimDesc(T.PRIM_RECT, transform, (sx, sy, 0.0), material_id, light_id, velocity,
+                                   tuple(uv_scale)))
 
     def add_mesh(self, vertices, indices, normals, uvs, material_ids, transform: RigidTransform | None = None):
         """Add a triangle mesh, pre-transformed to world space: vertices
@@ -200,7 +228,7 @@ class SceneBuilder:
 
     def add_mesh_instance(self, mesh_id: int, transform: RigidTransform, velocity=(0.0, 0.0, 0.0)) -> int:
         """Place an instance of a registered mesh: a rigid transform, and a
-        linear velocity over the shutter (stored; motion blur waits)."""
+        linear velocity over the shutter (motion blur)."""
         if getattr(transform, "scale", 1.0) != 1.0:
             raise ValueError(
                 "instances are rigid (rotation+translation); bake scaled "
@@ -225,6 +253,11 @@ class SceneBuilder:
             return self.add_material(MaterialDesc(name="__light__", bsdf="null", base_color=(0, 0, 0)))
         return self._mat_index["__light__"]
 
+    # --- decals ------------------------------------------------------------------
+    def add_decal(self, desc: DecalDesc) -> int:
+        self.decals.append(desc)
+        return len(self.decals) - 1
+
     # --- freeze --------------------------------------------------------------------
     def build(self, device) -> tuple[T.SceneData, T.SceneMeta]:
         if not self.materials:
@@ -245,6 +278,11 @@ class SceneBuilder:
             normal_tex=_i32([m.normal_tex for m in mats], device),
             mask_tex=_i32([m.mask_tex for m in mats], device),
             normal_strength=_f32([m.normal_strength for m in mats], device),
+            dispersive=torch.as_tensor([m.dispersive for m in mats], dtype=torch.bool, device=device),
+            abbe=_f32([m.abbe for m in mats], device),
+            dispersion_c=_f32([m.dispersion_c for m in mats], device),
+            dispersion_d=_f32([m.dispersion_d for m in mats], device),
+            disp_use_abbe=torch.as_tensor([m.disp_use_abbe for m in mats], dtype=torch.bool, device=device),
         )
 
         prim_list = self.prims
@@ -258,6 +296,7 @@ class SceneBuilder:
             param=_vec3([p.param for p in prim_list], device),
             material_id=_i32([p.material_id for p in prim_list], device),
             light_id=_i32([p.light_id for p in prim_list], device),
+            vel=_vec3([p.velocity for p in prim_list], device),
             uv_scale=_vec3([(p.uv_scale[0], p.uv_scale[1], 1.0) for p in prim_list], device),
         )
 
@@ -266,7 +305,8 @@ class SceneBuilder:
         scene = T.SceneData(prims=prims, tris=tris, materials=materials,
                             lights=self._build_lights(device), clusters=clusters,
                             textures=self.textures, env_dist=self._build_env_dist(device),
-                            bvh=bvh, mesh_geoms=mesh_geoms, instances=instances)
+                            bvh=bvh, decals=self._build_decals(device), mesh_geoms=mesh_geoms,
+                            instances=instances)
         return scene, self._build_meta(prim_list, tri_verts, inst_radii)
 
     def _build_env_dist(self, device):
@@ -289,6 +329,25 @@ class SceneBuilder:
         from ..math.distribution import make_distribution_2d
 
         return make_distribution_2d(lum * np.sin(theta)[:, None], device=device)
+
+    def _build_decals(self, device):
+        """The decal table, sorted by descending ``order`` (the sort is
+        stable: equal orders keep their insertion order); None if there
+        are no decals."""
+        if not self.decals:
+            return None
+        ds = sorted(self.decals, key=lambda d: -d.order)
+        return T.Decals(
+            rot=_rot3([d.transform for d in ds], device),
+            trans=_vec3([tuple(d.transform.translation) for d in ds], device),
+            half_size=_vec3([d.half_size for d in ds], device),
+            base_color=_vec3([d.base_color for d in ds], device),
+            base_color_tex=_i32([d.base_color_tex for d in ds], device),
+            alpha_tex=_i32([d.alpha_tex for d in ds], device),
+            roughness=_f32([d.roughness for d in ds], device),
+            alpha_min=_f32([d.alpha_min for d in ds], device),
+            alpha_max=_f32([d.alpha_max for d in ds], device),
+        )
 
     def _build_tris(self, device):
         """The baked world-space triangles: (Triangles, BVHFlat, ClusterSet,

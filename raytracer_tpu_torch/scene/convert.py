@@ -2,12 +2,13 @@
 
 ``scene_from_numpy`` takes the reference's ``SceneData`` / ``ClusterSet``
 / ``Camera`` / ``SceneMeta`` (or any NamedTuple of them) whose array leaves
-were mapped to numpy, and builds the port's type of the same name from the
-fields the port keeps (the texture atlas, the environment map's
-distribution, the skip-link BVH, shared meshes and instances included).
-Fields the port does not hold yet (decals, motion blur, bokeh shapes) must
-be empty or off: a scene that uses them raises instead of losing them.  This lets a test run one module of each
-package on bit-identical data.
+were mapped to numpy, and builds the port's type of the same name, field by
+field (the texture atlas, the environment map's distribution, the skip-link
+BVH, shared meshes and instances, decals, velocities, the dispersion
+columns and the camera's shutter-close pose and bokeh included).  A
+reference object with a field its port type does not hold raises instead
+of losing it.  This lets a test run one module of each package on
+bit-identical data.
 """
 
 from __future__ import annotations
@@ -26,11 +27,9 @@ from .clusters import ClusterSet
 _PORT_TYPES = {
     cls.__name__: cls
     for cls in (T.SceneData, T.Primitives, T.Triangles, T.Materials, T.Lights,
-                T.Rot3, T.Camera, T.SceneMeta, T.TextureAtlas, T.BVHFlat, T.MeshGeom, T.Instances,
+                T.Rot3, T.Camera, T.SceneMeta, T.TextureAtlas, T.BVHFlat, T.MeshGeom, T.Instances, T.Decals,
                 Distribution, Distribution2D, Vec3, ClusterSet)
 }
-# reference fields the port does not hold yet: they must be empty / off
-_WAITING = ("decals", "enable_motion_blur", "bokeh_shape")
 
 
 def _field_names(cls) -> tuple:
@@ -51,11 +50,9 @@ def scene_from_numpy(obj, device):
     cls = _PORT_TYPES.get(type(obj).__name__)
     if cls is None:
         raise TypeError(f"no port type for {type(obj).__name__}")
-    for name in _WAITING:
-        if getattr(obj, name, None):
-            raise NotImplementedError(
-                f"scene field '{name}' is not ported yet (ROADMAP queue 0)"
-            )
+    lost = [f for f in _field_names(type(obj)) if f not in _field_names(cls)]
+    if lost:
+        raise TypeError(f"the port's {cls.__name__} has no field {lost}: converting would drop it")
     if cls is T.SceneMeta:
         return T.SceneMeta(**{f: getattr(obj, f) for f in _field_names(cls)})
     if cls is T.TextureAtlas:

@@ -2,10 +2,8 @@
 tensors (port of ``raytracer_tpu/scene/types.py``).
 
 Field names follow the reference so ``scene/convert.py`` can carry a JAX
-scene across by name.  The port keeps the fields the MIS path tracer
-reads on analytic prims, baked triangle meshes with their skip-link BVH and
-instanced meshes, with textures and the environment-map distribution;
-decals, motion blur and spectral dispersion wait (ROADMAP).
+scene across by name: every field of a reference type has a field of the
+same name here (``tests/test_torch_scene.py`` holds that).
 """
 
 from __future__ import annotations
@@ -85,6 +83,9 @@ class Primitives(NamedTuple):
     param: Vec3  # sphere: (radius,-,-); box/rect: half-size
     material_id: torch.Tensor  # (P,) int32
     light_id: torch.Tensor  # (P,) int32, INVALID_ID unless this prim IS a light
+    # linear velocity over the shutter interval: at ray time t the prim's
+    # translation is trans + vel * t (motion blur)
+    vel: Vec3
     uv_scale: Vec3  # per-object texture-coordinate scale (u, v, 1)
 
     @property
@@ -156,6 +157,14 @@ class Materials(NamedTuple):
     normal_tex: torch.Tensor
     mask_tex: torch.Tensor  # stored for the schema; nothing reads it (as in the reference)
     normal_strength: torch.Tensor  # (M,)
+    # spectral dispersion (read in spectral mode only): ior(lambda) = IoR +
+    # C / lambda_um^2 + D / lambda_um^4, or, where ``disp_use_abbe``, the
+    # Cauchy form fitted to (IoR, abbe)
+    dispersive: torch.Tensor  # (M,) bool
+    abbe: torch.Tensor  # (M,) Abbe number V_d
+    dispersion_c: torch.Tensor  # (M,) Cauchy C (um^2)
+    dispersion_d: torch.Tensor  # (M,) Cauchy D (um^4)
+    disp_use_abbe: torch.Tensor  # (M,) bool: the abbe form instead of C / D
 
 
 class Lights(NamedTuple):
@@ -176,9 +185,10 @@ class Lights(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class Camera:
-    """Perspective camera + DoF: 0-d tensors on the scene's device, plus the
-    static feature toggles as plain fields.  Camera motion blur and
-    non-circular bokeh wait (ROADMAP)."""
+    """Perspective camera with thin-lens DoF and motion blur: 0-d tensors on
+    the scene's device, plus the static feature toggles as plain fields.
+    The ``*_end`` pose is the camera at shutter close (time 1); a ray at
+    time t sees the lerp of the two poses, re-orthonormalized."""
 
     origin: Vec3
     right: Vec3  # transform row 0
@@ -190,8 +200,15 @@ class Camera:
     focal_distance: torch.Tensor
     distortion_const: torch.Tensor
     distortion_variable: torch.Tensor
-    enable_dof: bool = False  # thin lens with a circular aperture
+    origin_end: Vec3
+    right_end: Vec3
+    up_end: Vec3
+    forward_end: Vec3
+    enable_dof: bool = False  # thin lens
+    bokeh_shape: int = 0  # scene/camera.py BOKEH_*: the aperture's shape
+    aperture_blades: int = 5  # sides of the BOKEH_NGON aperture
     enable_distortion: bool = False
+    enable_motion_blur: bool = False  # rays with a time use the lerped pose
 
 
 # texture kinds: bitmap / checkerboard / simplex-noise / mix(A, B, weight) / constant
@@ -227,6 +244,27 @@ class TextureAtlas(NamedTuple):
     max_octaves: int = 8
 
 
+class Decals(NamedTuple):
+    """Projected-texture decals, SoA over D, sorted by descending ``order``.
+    A decal is a box in its local space; shading points inside it get base
+    color and roughness alpha-blended from the decal's constants and
+    textures."""
+
+    rot: Rot3  # local->world rotation rows, (D,) each
+    trans: Vec3  # (D,) box center
+    half_size: Vec3  # (D,) box half-extents
+    base_color: Vec3  # (D,) constant factor
+    base_color_tex: torch.Tensor  # (D,) int32 texture id or INVALID_ID
+    alpha_tex: torch.Tensor  # (D,) int32 alpha texture (its x channel) or INVALID_ID
+    roughness: torch.Tensor  # (D,)
+    alpha_min: torch.Tensor  # (D,)
+    alpha_max: torch.Tensor  # (D,)
+
+    @property
+    def count(self) -> int:
+        return self.roughness.shape[0]
+
+
 class MeshGeom(NamedTuple):
     """One shared OBJECT-SPACE mesh: geometry stored once, referenced by any
     number of instances."""
@@ -238,10 +276,10 @@ class MeshGeom(NamedTuple):
 @dataclasses.dataclass(frozen=True)
 class Instances:
     """Instance table: per-instance rigid transform (object -> world) and
-    linear velocity over the shutter.  Rays are transformed into each
-    instance's object space and traced through its shared mesh;
-    ``mesh_ids`` is a plain tuple, known on the host.  ``vel`` is stored
-    and unused until motion blur is ported."""
+    linear velocity over the shutter (at ray time t the translation is
+    trans + vel * t).  Rays are transformed into each instance's object
+    space and traced through its shared mesh; ``mesh_ids`` is a plain
+    tuple, known on the host."""
 
     rot: Rot3  # object->world rotation rows, (I,) components
     trans: Vec3  # (I,)
@@ -266,6 +304,7 @@ class SceneData(NamedTuple):
     # (luminance x sin(theta)): NEE importance-samples it
     env_dist: object = None
     bvh: Optional[BVHFlat] = None  # skip-link BVH over ``tris`` (the ``bvh`` mode)
+    decals: Optional[Decals] = None
     # shared object-space meshes and their instances (two-level structure);
     # baked world-space ``tris`` and instanced meshes can coexist
     mesh_geoms: tuple = ()

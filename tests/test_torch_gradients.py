@@ -16,7 +16,9 @@ rtol 1e-5 and its gradients within rtol 2e-4 / atol 1e-6, the JAX package's
 own bounds for the same gradients computed two ways
 (``tests/test_parallel.py``), with the two departures that the tests below
 name: roughDielectric's rounding, and the reference's NaN roughness gradient
-of a specular material at roughness 0.
+of a specular material at roughness 0.  One more compile holds motion blur:
+the gradient with respect to a camera's shutter-close origin at 16^2, depth
+3, strength 1 (about two minutes of this file's time).
 
 Then, port only (cheap, no JAX): the six finite-difference checks of
 ``tests/test_gradients.py`` with their steps and tolerances; hits that carry
@@ -299,6 +301,40 @@ def test_grad_camera_fd(which):
 
     assert np.isfinite(ad) and ad != 0.0
     np.testing.assert_allclose(ad, _fd(f, 0.0, 1e-2), rtol=0.1, atol=1e-3)
+
+
+def test_gradient_through_the_shutter_close_pose_matches_jax():
+    """Motion blur: at 16^2, depth 3, MIS, strength 1, a camera that moves
+    over the shutter; the loss and its gradient with respect to
+    ``origin_end`` (each ray's origin is the lerp of the two poses at its
+    time) against ``jax.grad``, within this file's rtol 1e-5 for the loss
+    and rtol 2e-4 / atol 1e-6 for the gradient."""
+    import dataclasses
+
+    from raytracer_tpu.render.renderer import ViewportParams as RefViewportParams
+
+    ref_scene, meta = _scene()
+    scene, _ = _carried((ref_scene, meta))
+    vp = dict(width=16, height=16, seed=1, motion_blur_strength=1.0)
+    end = dict(translation=(0.3, 0.1, -0.2), euler_deg=(0.0, 3.0, 0.0))
+    ref_cam = ref_make_camera(RefRigidTransform(), fov_deg=40.0, transform_end=RefRigidTransform(**end))
+
+    def ref_loss(origin_end):
+        cam = dataclasses.replace(ref_cam, origin_end=RefVec3(*origin_end))
+        r, _ = ref_trace_rows(ref_scene, meta, cam, jnp.int32(0), None, RefViewportParams(**vp),
+                              dataclasses.replace(REF_PARAMS, max_depth=3))
+        return jnp.mean(r.x + 2.0 * r.y + 0.5 * r.z)
+
+    want, want_grad = jax.jit(jax.value_and_grad(ref_loss))(tuple(ref_cam.origin_end))
+    cam = make_camera(RigidTransform(), fov_deg=40.0, transform_end=RigidTransform(**end), device="cpu")
+    leaves = [c.clone().requires_grad_() for c in cam.origin_end]
+    r, _ = trace_rows(scene, meta, dataclasses.replace(cam, origin_end=Vec3(*leaves)), 0, None, ViewportParams(**vp),
+                      RenderParams(max_depth=3, mis=True))
+    loss = torch.mean(r.x + 2.0 * r.y + 0.5 * r.z)
+    got = torch.autograd.grad(loss, leaves)
+    np.testing.assert_allclose(loss.item(), float(want), rtol=1e-5)
+    np.testing.assert_allclose([float(g) for g in got], [float(g) for g in want_grad], rtol=2e-4, atol=1e-6)
+    assert np.abs([float(g) for g in got]).max() > 1e-3
 
 
 # --- traversal stays detached; every exact mode gives the same gradients ----

@@ -406,6 +406,118 @@ def test_small_textured_scene_loads_like_the_reference(tmp_path, monkeypatch):
 
 
 def test_convert_refuses_waiting_fields():
+    """A reference object with a field its port type lacks raises instead
+    of losing it; the fields that used to wait (decals, velocities, the
+    dispersion columns, the camera's shutter pose and bokeh) now carry."""
+    from collections import namedtuple
+
+    from raytracer_tpu.scene import types as RT
+
     ref_scene, _ = ref_presets.cornell_box()
-    with pytest.raises(NotImplementedError, match="decals"):
-        scene_from_numpy(jax.tree_util.tree_map(np.asarray, ref_scene._replace(decals=("x",))), "cpu")
+    ref_scene = jax.tree_util.tree_map(np.asarray, ref_scene)
+    assert scene_from_numpy(ref_scene, "cpu").prims.vel.x.shape == ref_scene.prims.vel.x.shape
+    grown = namedtuple("Primitives", RT.Primitives._fields + ("spin",))(*ref_scene.prims, np.zeros(3, np.float32))
+    with pytest.raises(TypeError, match="spin"):
+        scene_from_numpy(ref_scene._replace(prims=grown), "cpu")
+    cam = ref_make_camera(RefRigidTransform())
+    grown_cam = dataclasses.make_dataclass("Camera", [(f.name, object) for f in dataclasses.fields(cam)]
+                                           + [("shutter_curve", object)])
+    with pytest.raises(TypeError, match="shutter_curve"):
+        scene_from_numpy(grown_cam(**{f.name: getattr(cam, f.name) for f in dataclasses.fields(cam)},
+                                   shutter_curve=0), "cpu")
+
+
+@pytest.mark.parametrize("name", ["SceneData", "Primitives", "Triangles", "Materials", "Lights", "Camera",
+                                  "SceneMeta", "TextureAtlas", "BVHFlat", "MeshGeom", "Instances", "Decals",
+                                  "Rot3", "ClusterSet"])
+def test_port_types_hold_every_reference_field(name):
+    """The field diff of the two packages' scene types is empty: every field
+    of a reference type is a field of the port type of the same name."""
+    from raytracer_tpu.scene import clusters as ref_clusters, types as RT
+    from raytracer_tpu_torch.scene import convert
+
+    ref_cls = getattr(ref_clusters if name == "ClusterSet" else RT, name)
+    port_cls = convert._PORT_TYPES[name]
+    missing = set(convert._field_names(ref_cls)) - set(convert._field_names(port_cls))
+    assert not missing, missing
+
+
+def _fx_scene(build_mod, rigid, types_mod):
+    """A scene of every effect, built by one package's builder: moving prims
+    and a moving instance, dispersive materials in both forms and three
+    decals (two of equal order, to pin the stable sort)."""
+    b = build_mod.SceneBuilder()
+    glass = b.add_material(build_mod.MaterialDesc(name="glass", bsdf="dielectric", ior=1.6, dispersive=True,
+                                                  abbe=22.0, disp_use_abbe=True))
+    flint = b.add_material(build_mod.MaterialDesc(name="flint", bsdf="roughDielectric", roughness=0.2,
+                                                  dispersive=True, dispersion_c=0.0095, dispersion_d=0.0004))
+    wall = b.add_material(build_mod.MaterialDesc(name="wall", base_color=(0.6, 0.6, 0.5)))
+    b.add_sphere(rigid(translation=(0.0, 0.5, 2.0)), 0.5, glass, velocity=(0.4, 0.0, 0.1))
+    b.add_box(rigid(translation=(1.0, 0.3, 2.5), euler_deg=(0, 30, 0)), (0.3, 0.3, 0.3), flint,
+              velocity=(0.0, 0.2, 0.0))
+    b.add_rect(rigid(translation=(0, 0, 4), euler_deg=(180, 0, 0)), (3.0, 3.0), wall, velocity=(0.0, 0.0, -0.5),
+               uv_scale=(2.0, 1.0))
+    v = np.array([[-1, 0, -1], [1, 0, -1], [1, 0, 1], [-1, 0, 1], [0, 1.5, 0]], np.float64)
+    f = np.array([[0, 1, 4], [1, 2, 4], [2, 3, 4], [3, 0, 4]], np.int64)
+    mid = b.add_mesh_geometry(v, f, np.tile([[0.0, 1.0, 0.0]], (5, 1)), None, np.full(4, wall))
+    b.add_mesh_instance(mid, rigid(translation=(-1.0, 0.0, 3.0)), velocity=(0.3, 0.0, 0.0))
+    for order, color, where in ((2, (0.9, 0.1, 0.1), (0, 0, 4)), (0, (0.1, 0.9, 0.1), (0.5, 0, 4)),
+                                (2, (0.1, 0.1, 0.9), (-0.5, 0.2, 4))):
+        b.add_decal(build_mod.DecalDesc(transform=rigid(translation=where, euler_deg=(0, 0, 15)),
+                                        half_size=(0.8, 0.6, 0.3), base_color=color, roughness=0.25,
+                                        alpha_min=0.2, alpha_max=0.9, order=order))
+    b.add_light(build_mod.LightDesc(kind=types_mod.LIGHT_BACKGROUND, color=(0.5, 0.5, 0.5)))
+    return b
+
+
+def test_builders_carry_every_effect_bit_for_bit():
+    """Velocities of prims and instances, the dispersion columns, the
+    decal table (sorted by descending order) and the camera's shutter pose
+    and bokeh: the two builders' tables equal bit for bit, and so are they
+    after scene_from_numpy carried the reference's across."""
+    from raytracer_tpu.scene import build as ref_build
+    from raytracer_tpu.scene import types as RT
+    from raytracer_tpu_torch.scene import build
+    from raytracer_tpu_torch.scene import types as T
+
+    ref_scene, ref_meta = _fx_scene(ref_build, RefRigidTransform, RT).build()
+    scene, meta = _fx_scene(build, RigidTransform, T).build("cpu")
+    carried = to_port(ref_scene)
+    assert isinstance(carried.decals, T.Decals)
+    assert_same(scene, carried)
+    assert meta == to_port(ref_meta)
+    assert scene.decals.count == 3 and scene.decals.base_color.y.tolist()[-1] == pytest.approx(0.9)
+    assert scene.materials.dispersive.tolist() == [True, True, False]
+    assert scene.materials.disp_use_abbe.tolist() == [True, False, False]
+    assert scene.prims.vel.z.tolist() == pytest.approx([0.1, 0.0, -0.5])
+    kw = dict(fov_deg=50.0, enable_dof=True, aperture=0.05, focal_distance=3.0, bokeh_shape=3, aperture_blades=7)
+    end = dict(translation=(0.2, 0.1, -0.3), euler_deg=(2.0, 5.0, 0.0))
+    cam = make_camera(RigidTransform(), transform_end=RigidTransform(**end), **kw, device="cpu")
+    ref_cam = ref_make_camera(RefRigidTransform(), transform_end=RefRigidTransform(**end), **kw)
+    assert_same(cam, to_port(ref_cam))
+    assert cam.enable_motion_blur and cam.bokeh_shape == 3 and cam.aperture_blades == 7
+
+
+def test_loader_reads_the_dispersion_keys_like_the_reference(tmp_path):
+    """A JSON material with ``dispersive`` and ``abbe`` (the Abbe form), one
+    with ``dispersionC`` / ``dispersionD`` (the Cauchy form) and one with
+    neither: the two loaders' material tables equal bit for bit."""
+    import json
+
+    p = tmp_path / "disp.json"
+    p.write_text(json.dumps({
+        "materials": [
+            {"name": "crown", "bsdf": "dielectric", "IoR": 1.52, "dispersive": True, "abbe": 58.0},
+            {"name": "flint", "bsdf": "roughDielectric", "IoR": 1.62, "dispersive": True, "dispersionC": 0.0091,
+             "dispersionD": 0.0003},
+            {"name": "plain", "bsdf": "diffuse"},
+        ],
+        "objects": [{"type": "sphere", "radius": 0.5, "material": "crown"},
+                    {"type": "sphere", "radius": 0.3, "material": "flint", "transform": {"translation": [1, 0, 0]}}],
+        "lights": [{"type": "background", "color": [1, 1, 1]}]}))
+    ref_scene, _, _ = ref_load_scene(str(p))
+    scene, _, _ = load_scene(str(p), device="cpu")
+    assert_same(scene.materials, to_port(ref_scene.materials), "materials")
+    assert scene.materials.disp_use_abbe.tolist() == [True, False, False]
+    assert scene.materials.dispersive.tolist() == [True, True, False]
+    assert_same(scene, to_port(ref_scene))

@@ -32,6 +32,14 @@ knot is written once, as ``knot.obj``, and placed 3 times down the aisle.
 The loaders turn a mesh path used more than once into one shared geometry
 and its instances, so the world geometry is the baked hall's up to float32
 rounding.
+
+``ensure_interior_fx(bench_dir)`` writes ``interior_fx.json``: the instanced
+hall of ``ensure_interior_inst`` with the ``textures`` block, textured
+materials, slab and props of ``ensure_interior_tex``, a camera with
+``enableDOF`` focused on the first knot, and an analytic glass sphere whose
+material is ``"dispersive": true`` (the Abbe form).  The JSON schema has no
+velocities, decals, bokeh shape or shutter-close pose; ``chip_smoke.py``
+phase 20 sets those in Python on what the loader returns.
 """
 
 from __future__ import annotations
@@ -243,9 +251,36 @@ def ensure_interior_inst(bench_dir: str = DEFAULT_DIR, force: bool = False) -> s
     return json_path
 
 
+FX_SPHERE = {"radius": 0.9, "transform": {"translation": [3.0, 1.0, -30.0]}}  # the dispersive glass sphere
+
+
+def ensure_interior_fx(bench_dir: str = DEFAULT_DIR, force: bool = False) -> str:
+    """``interior_fx.json``: the instanced hall with the textured additions,
+    depth of field and a dispersive glass sphere (idempotent); returns the
+    JSON path."""
+    with open(ensure_interior_inst(bench_dir, force)) as f:
+        inst = json.load(f)
+    with open(ensure_interior_tex(bench_dir, force)) as f:
+        tex = json.load(f)
+    json_path = os.path.join(bench_dir, "interior_fx.json")
+    if os.path.exists(json_path) and not force:
+        return json_path
+    meshes = [o for o in inst["objects"] if o["type"] == "mesh"]
+    camera = dict(inst["camera"], enableDOF=True, aperture=0.12,
+                  focalPlaneDistance=KNOT_Z[0] - inst["camera"]["transform"]["translation"][2])
+    doc = dict(tex, objects=meshes + [o for o in tex["objects"] if o["type"] != "mesh"]
+               + [{"type": "sphere", "material": "dispersive glass", **FX_SPHERE}],
+               materials=tex["materials"] + [{"name": "dispersive glass", "bsdf": "dielectric", "IoR": 1.6,
+                                              "dispersive": True, "abbe": 20.0}],
+               camera=camera)
+    with open(json_path, "w") as f:
+        json.dump(doc, f, indent=1)
+    return json_path
+
+
 if __name__ == "__main__":
     out = sys.argv[1] if len(sys.argv) > 1 else DEFAULT_DIR
-    for path in (ensure_interior(out), ensure_interior_tex(out), ensure_interior_inst(out)):
+    for path in (ensure_interior(out), ensure_interior_tex(out), ensure_interior_inst(out), ensure_interior_fx(out)):
         with open(path) as f:
             doc = json.load(f)
         print(f"{path}: {len(doc['objects'])} objects, {len(doc.get('textures', []))} textures, "
