@@ -63,7 +63,7 @@ Phases (any failure exits non-zero before the last line):
     written by tools/torch_gen_interior.py (numpy BMP writer, no PIL) and
     loaded by the port's loader: no textures (both loaders ignore map_Kd),
     2 area lights + background; 512^2, depth 6, MIS under wave2 (1 warm-up +
-    4 timed passes): Mray/s, rays, shadow rays, overflow = 0, wave2_mt
+    3 timed passes, whose 4-pass radiance phase 21 reuses): Mray/s, rays, shadow rays, overflow = 0, wave2_mt
     launches > 0, finite radiance, peak memory; one profiled pass.  The
     load's BVH build is logged with its own time and the device memory it
     adds (as every BVH build of the script is).  Before
@@ -181,6 +181,34 @@ Phases (any failure exits non-zero before the last line):
     wave2_mt for the instances) with its mean radiance within 1e-3 of the
     wave2 render's first pass, and at 128^2, strength 0, spectral off, the
     radiance bit for bit that of the hall held still.
+21. the frame-loop extras (tools/torch_check_frameloop.py): (a) the
+    adaptive renderer (AdaptiveSettings() at the reference's defaults) on
+    interior800k_mis and on mesh200k_mis at 512^2, depth 6, MIS, wave2, 8
+    passes: after pass 4 its radiance bit for bit the uniform Viewport's 4
+    passes (the hall's from phase 12); each pass's active blocks and
+    pixels, converged share, error in dB, ms, rays, wave2_mt launches; the
+    wave2_mt kernel against its twin on an adapted pass's wavefront (the
+    active blocks' pixels in block order, padded with pixel 0).  (b)
+    checkpoint / resume on mesh200k_mis at 512^2: 2 passes, save, a fresh
+    Viewport loads and renders 2 more, its film bit for bit the straight
+    4-pass film; seconds to save and load, bytes.  (c) debug_pixel_path of
+    a hall pixel and a Cornell pixel on the card against the CPU port
+    (vertices, ids and the end equal, floats within rtol 1e-5; one-ray
+    wave2 windows on the hall, held against the CPU port's bvh walk, since
+    wave2's plain twin takes minutes on the hall on the CPU).  (d) every packed codec over 2^20 lanes, the
+    card's codes bit-equal to the CPU's.
+22. multi-device (tools/torch_check_parallel.py): (a) this process as an
+    NCCL group of one (a file:// rendezvous under _build/parallel):
+    render_pass_sharded on mesh200k_mis at 512^2, 2 passes, bit-equal to
+    the Viewport's film and counters; render_pass_vcm_sharded of the Cornell
+    box at 512^2, one pass, bit-equal to render_pass_vcm; train_step_sharded
+    at 64^2 bit-equal to train_step; the group destroyed.  (b) two processes
+    in a gloo group, each rendering its band on this card (NCCL refuses two
+    ranks on one device; gloo's collectives copy the CUDA tensors through
+    the host, counted): each band bit-equal to (a)'s rows, the counters
+    equal, VCM within rtol 2e-4 / atol 2e-5 and the train step within the
+    reference's bounds of (a), wave2_mt launched in each rank; each child's
+    exit code read with a timeout.
 
 Every line goes to raytracer_tpu_torch/_build/chip_smoke.log too (truncated
 at the start of a run), since the tail of the output may be cut.  The last
@@ -212,7 +240,9 @@ sys.path.insert(0, os.path.join(ROOT, "tools"))
 import bench_mesh  # noqa: E402  (numpy-only scene generator)
 import torch_check_gradients as tcg  # noqa: E402
 import torch_check_features as tfx  # noqa: E402
+import torch_check_frameloop as tfl  # noqa: E402
 import torch_check_integrators as tci  # noqa: E402
+import torch_check_parallel as tpar  # noqa: E402
 import torch_check_textures as tctex  # noqa: E402
 import torch_check_traverse as tct  # noqa: E402
 import torch_gen_interior  # noqa: E402
@@ -228,6 +258,7 @@ from raytracer_tpu_torch.ops import pallas_traverse as pt  # noqa: E402
 from raytracer_tpu_torch.ops import traverse  # noqa: E402
 from raytracer_tpu_torch.ops import wave2_traverse as w2  # noqa: E402
 from raytracer_tpu_torch.ops.launch_probe import add_one  # noqa: E402
+from raytracer_tpu_torch.render.film import average_radiance  # noqa: E402
 from raytracer_tpu_torch.render.renderer import Viewport, ViewportParams, pixel_grid  # noqa: E402
 from raytracer_tpu_torch.sampler.sampler import make_stream  # noqa: E402
 from raytracer_tpu_torch.scene import bvh as bvh_module  # noqa: E402
@@ -241,6 +272,7 @@ LOG_PATH = os.path.join(ROOT, "raytracer_tpu_torch", "_build", "chip_smoke.log")
 KERNELS = ("wave2_mt", "phase2_grid", "phase2_stream", "add_one", "bvh_walk")
 _LOG = []  # the open log file, once main() has opened it
 RENDERS = []  # one summary entry per timed render
+T_START = time.perf_counter()
 
 
 def log(msg: str):
@@ -416,7 +448,8 @@ def interior_render(path, dev, smi, label, textured, passes=4):
     512^2 depth 6 MIS under wave2 (1 warm-up + ``passes`` timed, one profiled)
     with the wave2_mt launches counted; before the render, the kernel and the
     engine against the twin on this scene's cluster set (cluster_windows).
-    Returns (viewport, {"launches": ..., "windows": ...})."""
+    Returns (viewport, {"launches": ..., "windows": ...}, the radiance after
+    the 1 + ``passes`` passes, before the profiled one)."""
     t0 = time.perf_counter()
     scene, meta, cam = load_scene(path, strict=True, device=dev)
     torch.cuda.synchronize()
@@ -450,7 +483,7 @@ def interior_render(path, dev, smi, label, textured, passes=4):
     check(overflow == 0, f"{label}: traversal overflow is 0")
     check(bool(np.isfinite(radiance).all()) and radiance.mean() > 0, f"{label}: radiance finite with non-zero mean")
     profiled(lambda: vp.render(1), f"{label} [wave2] pass", named=("wave2_mt",))
-    return vp, {"launches": launches, "windows": windows, "mean": float(radiance.mean())}
+    return vp, {"launches": launches, "windows": windows, "mean": float(radiance.mean())}, radiance
 
 
 def bvh_windows(scene, meta, cam, dev, label):
@@ -777,6 +810,93 @@ def fx_phase(dev, smi):
     return (launches, windows), both[0]
 
 
+def frameloop_phase(hall, hall_radiance4, mesh, mt, dev):
+    """Phase 21 (tools/torch_check_frameloop.py).  (a) AdaptiveViewport at
+    512^2, depth 6, MIS, wave2, reference defaults, 8 passes, on the hall
+    (``hall``: phase 12's viewport; ``hall_radiance4``: its radiance after
+    4 passes) and on mesh200k (``mesh``; against a 4-pass Viewport): after
+    pass 4 bit-equal to the uniform render; wave2_mt against its twin on
+    each adapted pass's wavefront.  (b) checkpoint / resume on mesh200k at
+    512^2, bit-equal to the straight 4-pass film.  (c) debug_pixel_path of a
+    hall pixel and a Cornell pixel on the card against the CPU port.  (d)
+    every packed codec over 2^20 lanes, the card's codes the CPU's.  Adds the
+    driven paths to wave2_mt's row ``mt``."""
+    t21 = time.perf_counter()
+    check(traverse.get_traversal_mode() == "auto", "the traversal mode is the default (auto -> wave2)")
+    mscene, mmeta, mcam = mesh
+    straight = Viewport(mscene, mmeta, mcam, ViewportParams(512, 512, seed=0), RenderParams(max_depth=6, mis=True),
+                        device=dev).render(4)
+    for label, (sc, me, ca), uniform4 in (
+            ("interior800k_adaptive", (hall.scene, hall.meta, hall.cam), hall_radiance4),
+            ("mesh200k_adaptive", mesh, average_radiance(straight.film).cpu().numpy())):
+        av, st = tfl.adaptive_run(sc, me, ca, dev, log, label, uniform4=uniform4)
+        window = tct.check_wave2_window(sc.clusters, *tfl.wavefront_window(av, dev), float(me.scene_radius), dev, log,
+                                        label=f"{label} adapted wavefront window")
+        mt["by_path"][label] = {"launches": st["launches"], "windows": {"adapted wavefront": window}}
+        last = st["per_pass"][-1]
+        RENDERS.append(f"summary {label} 512^2 depth 6, AdaptiveSettings(), 8 passes: ms a pass "
+                       f"{[round(q['ms'], 1) for q in st['per_pass']]}, wavefront lanes "
+                       f"{[q['lanes'] for q in st['per_pass']]}; after the last: active blocks {last['active_blocks']}, "
+                       f"active pixels {last['active_pixels']}, converged {last['converged_fraction']:.4f}, error "
+                       f"{last['error_db']:.2f} dB; rays {sum(q['rays'] for q in st['per_pass']):.0f}, wave2_mt "
+                       f"launches {st['launches']}; first 4 passes bit-equal to the uniform render")
+    log(f"phase 21 a (adaptive) wall time {time.perf_counter() - t21:.1f} s")
+
+    w2.mt_chunks.launches = 0
+    ck = tfl.checkpoint_resume(mscene, mmeta, mcam, dev, log, os.path.join(ROOT, "raytracer_tpu_torch", "_build",
+                                                                           "checkpoints"), "mesh200k_mis", straight)
+    mt["by_path"]["mesh200k_mis checkpoint resume"] = {"launches": w2.mt_chunks.launches, "windows_of": "mesh200k_mis",
+                                                       "windows": mt["by_path"]["mesh200k_mis"]["windows"]}
+    RENDERS.append(f"summary mesh200k_mis checkpoint 512^2: save {ck['save_s']:.3f} s, load {ck['load_s']:.3f} s, "
+                   f"{ck['bytes']} bytes; resumed film bit-equal to the straight 4 passes")
+
+    w2.mt_chunks.launches = 0
+    t0 = time.perf_counter()
+    cpu_hall = tci.scene_on(hall.scene, "cpu"), tci.scene_on(hall.cam, "cpu")
+    log(f"interior800k: a CPU copy of the hall in {time.perf_counter() - t0:.1f} s")
+    hall_ms, path = tfl.path_replay(hall.scene, hall.meta, hall.cam, *cpu_hall, (256, 256), 512, 6, dev, log,
+                                    "interior800k", cpu_mode="bvh")
+    check(any(v.tri_id >= 0 for v in path.vertices), "the hall pixel's replayed path hits a triangle")
+    mt["by_path"]["interior800k path replay (one-ray windows)"] = {
+        "launches": w2.mt_chunks.launches, "windows_of": "interior800k_mis",
+        "windows": mt["by_path"]["interior800k_mis"]["windows"]}
+    cs, cm, cc = tci.port_cornell(dev)
+    ps, _, pc = tci.port_cornell("cpu")
+    cornell_ms, _ = tfl.path_replay(cs, cm, cc, ps, pc, (256, 400), 512, 6, dev, log, "cornell")
+    codec_ms = tfl.packed_codecs(dev, log)
+    RENDERS.append(f"summary phase 21 c-d: path replay {hall_ms:.1f} ms (hall pixel, {len(path.vertices)} vertices), "
+                   f"{cornell_ms:.1f} ms (Cornell pixel), equal to the CPU port's; packed codecs over 2^20 lanes, "
+                   f"encode + decode ms {', '.join(f'{k} {v:.3f}' for k, v in codec_ms.items())}, codes bit-equal to "
+                   f"the CPU's")
+    log(f"phase 21 (frame-loop extras) wall time {time.perf_counter() - t21:.1f} s")
+
+
+def parallel_phase(mesh, mesh_json, mt, dev):
+    """Phase 22 (tools/torch_check_parallel.py): (a) this process as an
+    NCCL world of one: render_pass_sharded on mesh200k (``mesh``, written at
+    ``mesh_json``) at 512^2, render_pass_vcm_sharded of the Cornell box at
+    512^2, train_step_sharded at 64^2, each bit-equal to the unsharded
+    function; (b) two gloo ranks on the card, each band held against (a).
+    Adds the driven paths to wave2_mt's row ``mt``."""
+    t22 = time.perf_counter()
+    work = os.path.join(ROOT, "raytracer_tpu_torch", "_build", "parallel")
+    got, one = tpar.world_of_one(mesh, tci.port_cornell(dev), dev, log, work)
+    mt["by_path"]["mesh200k_sharded (NCCL, world of one)"] = {
+        "launches": got["launches"], "windows_of": "mesh200k_mis", "windows": mt["by_path"]["mesh200k_mis"]["windows"]}
+    log(f"phase 22 a (world of one) wall time {time.perf_counter() - t22:.1f} s")
+    ranks = tpar.two_ranks(mesh_json, one, dev, log, work)
+    mt["by_path"]["mesh200k_sharded (gloo, 2 ranks on one card)"] = {
+        "launches": sum(int(r["launches"]) for r in ranks), "windows_of": "mesh200k_mis",
+        "windows": mt["by_path"]["mesh200k_mis"]["windows"]}
+    RENDERS.append(f"summary phase 22: NCCL world of one, mesh200k 512^2 ms a pass {got['ms'].round(1).tolist()}, "
+                   f"Cornell VCM {got['vcm_ms']:.1f} ms, all bit-equal to the unsharded functions; 2 gloo ranks on one "
+                   f"card, ms a pass " + "; ".join(
+                       f"rank {i} {r['ms'].round(1).tolist()}, VCM {float(r['vcm_ms']):.1f} ms, wave2_mt launches "
+                       f"{int(r['launches'])}, host bytes {int(r['host_bytes'])}" for i, r in enumerate(ranks))
+                   + "; bands bit-equal, VCM and train step within the reference's bounds")
+    log(f"phase 22 (multi-device) wall time {time.perf_counter() - t22:.1f} s")
+
+
 def log_bvh_builds():
     """From here on, every BVH a scene build makes (scene/bvh.py's
     build_bvh_over_triangles, which scene/build.py looks up at each call) is
@@ -925,14 +1045,16 @@ def run():
     mt = rows["wave2_mt"]
     window = {key: mt[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
     mt["by_path"] = {"mesh200k_mis": {"launches": mt["launches"], "windows": {"incoherent": window}}}
-    hall, mt["by_path"]["interior800k_mis"] = interior_render(plain_json, dev, smi, "interior800k_mis", False)
+    # 3 timed passes (1 + 3 = the 4 passes that phase 21 holds the adaptive render against)
+    hall, mt["by_path"]["interior800k_mis"], hall_radiance4 = interior_render(plain_json, dev, smi, "interior800k_mis",
+                                                                              False, passes=3)
 
     # --- 13. the textured interior ---------------------------------------------
     small = small_render_agrees(params, dev, "wave2", name="small textured scene",
                                 small=torch_gen_interior.ensure_small_textured(INTERIOR_DIR + "_small"))
     check(small.scene.textures is not None and small.scene.env_dist is not None,
           "the small textured scene has its atlas and its env distribution")
-    vp, mt["by_path"]["interior800k_tex_mis"] = interior_render(
+    vp, mt["by_path"]["interior800k_tex_mis"], _ = interior_render(
         torch_gen_interior.ensure_interior_tex(INTERIOR_DIR), dev, smi, "interior800k_tex_mis", True, passes=2)
     t0 = time.perf_counter()
     image = vp.image()
@@ -977,6 +1099,12 @@ def run():
     by_path["interior800k_fx_mis (shell under bvh, one pass)"] = {
         "launches": fx_walk, "windows_of": "interior800k_inst_mis (shell under bvh, one pass)",
         "windows": walk_windows}
+
+    # --- 21. the frame-loop extras: adaptive, checkpoint, path replay, codecs -----
+    frameloop_phase(hall, hall_radiance4, (mscene, mmeta, mcam), mt, dev)
+
+    # --- 22. multi-device: a world of one (NCCL), two gloo ranks on the card -----
+    parallel_phase((mscene, mmeta, mcam), bench_mesh.ensure_scene(200_000), mt, dev)
     mt["max_abs_err"] = max(w["max_abs_err"] for path in mt["by_path"].values() for w in path["windows"].values())
 
     top = by_path["mesh200k_mis"]["windows"]["bounce"]["closest"]
@@ -999,6 +1127,7 @@ def run():
 
     for line in RENDERS:
         log(line)
+    log(f"chip_smoke.py wall time {time.perf_counter() - T_START:.1f} s")
     log(f"{smi}")
     log(json.dumps({"kernels": [rows[kernel] for kernel in KERNELS]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -9,18 +9,27 @@ mesh through a selectable traversal backend (the wave2 sort-join engine by
 default; the binned-wavefront ``wave`` engine; the skip-link ``bvh`` walk;
 the block-candidate ``sorted-pallas`` path; the per-ray ``cluster`` path),
 differentiable by autograd through ``render.renderer.trace_rows``; the
-light tracer, VCM and the debug renderer; and the scene effects (motion
-blur of prims, instances and the camera, bokeh shapes, decals, spectral
-rendering with dispersive materials):
+light tracer, VCM and the debug renderer; the scene effects (motion blur
+of prims, instances and the camera, bokeh shapes, decals, spectral
+rendering with dispersive materials); adaptive block rendering,
+checkpoint / resume and per-pixel path replay; and multi-device rendering
+over ``torch.distributed`` (pixel-row bands, VCM's photon gather, the
+sharded train step):
 
-    render/      Viewport, render_passes, film accumulation, trace_rows
-    parallel/    train_step (one-device material-gradient step)
+    render/      Viewport, render_passes, film accumulation, trace_rows,
+                 trace_pixels, adaptive (AdaptiveViewport), checkpoint,
+                 path_debug (debug_pixel_path), postprocess
+    parallel/    mesh: init_distributed, make_mesh, make_multihost_mesh,
+                 film_sharding / gather_film, render_pass_sharded,
+                 render_pass_vcm_sharded, train_step(_sharded)
     integrators/ path_tracer (naive + MIS, fused shadow query)
     scene/       SoA scene NamedTuples, camera, builder, clusters, BVH perm
     ops/         intersect, traverse (mode dispatch), wave2 and wave engines,
                  block-candidate and per-ray cluster traversal, BSDF, lights,
                  materials, the launch probe, the CUDA kernel build
-    math/        SoA vector math, sampling, microfacet, fresnel, transforms
+    math/        SoA vector math, sampling, microfacet, fresnel, transforms,
+                 packed codecs (octahedral, fp16, RGBE, YCoCg, R11G11B10)
+    utils/       leveled logger, scoped-timer profiler, torch.profiler traces
     color/       sRGB / tonemapping, the spectral resolve
     sampler/     counter-based deterministic sample streams (+ Halton)
     io/          reference-format JSON scene loading, OBJ meshes

@@ -23,8 +23,15 @@ the merge (N x K lanes) are evaluated in blocks of pixels of at most
 ``BLOCK_LANES`` lanes, each pixel's sums over D and K taken whole inside its
 block, so that a 512^2 pass does not hold every intermediate of 16.8M
 lanes at once.  ``rows`` / ``row0`` keep path ids global, so a band of
-pixel rows traces the same paths as the whole frame; ``axis_name`` (the
-multi-device photon gather) waits.
+pixel rows traces the same paths as the whole frame.  In band mode over a
+``torch.distributed`` group (``axis_name``, ``parallel/mesh.py::
+render_pass_vcm_sharded``) the splat frame is summed over the group and
+each rank keeps its band, and the photons of every rank are gathered in
+rank order before the grid build, as the reference's ``psum`` and tiled
+``all_gather`` do.  Every band has the same D x N photon slots, invalid
+ones parked, so the gather moves equal-sized tensors; the photon order,
+which decides the ``max_photons_per_cell`` a grid cell keeps, is the
+reference's sharded order, not the one-device order.
 """
 
 from __future__ import annotations
@@ -45,7 +52,8 @@ from ..ops.intersect import BIG
 from ..ops.lights import env_direction_pdf, gather_light, illuminate
 from ..ops.materials import apply_normal_map, resolve_material
 from ..ops.traverse import scene_hit_frame, scene_occluded, scene_traverse
-from ..render.film import accumulate_frame
+from ..parallel.mesh import all_gather_cat, all_reduce_sum
+from ..render.film import accumulate_frame, make_film
 from ..sampler.sampler import SampleStream, make_stream, next_3d
 from ..scene.camera import camera_pdf_w, generate_rays, world_to_film
 from ..scene.types import LIGHT_BACKGROUND, Camera, SceneData, SceneMeta
@@ -331,15 +339,13 @@ def _merge_vertices(photons: _Photons, cand_idx, cand_mask, frame, wo_local, mp,
 @torch.no_grad()
 def render_pass_vcm(scene: SceneData, meta: SceneMeta, cam: Camera, film, pass_idx: int, halton, vp, params,
                     vcm: VcmParams = VcmParams(), rows: int | None = None, row0: int = 0,
-                    axis_name: str | None = None):
+                    axis_name=None):
     """One full VCM pass: light phase, photon grid, camera phase.  Returns
     the film.  ``rows`` / ``row0`` trace the band of pixel rows
     [row0, row0 + rows) with global path ids; ``params`` (RenderParams) is
-    not read."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "render_pass_vcm(axis_name=...) gathers photons across devices; multi-device rendering waits "
-            "(ROADMAP queue 1 item 8)")
+    not read.  ``axis_name``: a ``torch.distributed`` process group over
+    the bands (``film`` is then this rank's band), in place of the
+    reference's mesh axis name."""
     from ..render.renderer import pixel_grid
 
     dev = film.sum.device
@@ -370,7 +376,13 @@ def render_pass_vcm(scene: SceneData, meta: SceneMeta, cam: Camera, film, pass_i
     path_ids = torch.arange(n, dtype=torch.int64, device=dev) + row0 * w
     lstream = make_stream(path_ids, pass_idx, seed=vp.seed + 0x5EC, halton=None)
     vertices, splats, _ = _trace_light_phase(scene, meta, cam, lstream, vcm, n, mis_vc_factor_vc, mis_vm_factor_vc)
-    film = splat_to_film(film, splats, w, h)
+    if axis_name is None:
+        film = splat_to_film(film, splats, w, h)
+    else:
+        # splats land on any pixel: a whole frame, summed over the group,
+        # of which this rank keeps its band
+        frame = all_reduce_sum(splat_to_film(make_film(w, h, dev), splats, w, h).sum, axis_name)
+        film = film._replace(sum=film.sum + frame[row0:row0 + rows_])
 
     # the photon array: every vertex, flattened (D*N,), invalid ones parked
     flat = lambda x: x.reshape(-1)
@@ -382,6 +394,9 @@ def render_pass_vcm(scene: SceneData, meta: SceneMeta, cam: Camera, film, pass_i
         d_vm=flat(vertices.d_vm),
         d_vcm=flat(vertices.d_vcm),
     )
+    if axis_name is not None:
+        # every rank's photons, in rank order, before the grid build
+        photons = _map(lambda x: all_gather_cat(x, axis_name), photons)
     grid = build_hash_grid(photons.pos, r_vm)
 
     # ---------------- camera phase ----------------

@@ -7,8 +7,10 @@ One render pass runs over the full pixel wavefront:
 Every sample is a pure function of (pixel id, pass, dim, seed), so renders
 are reproducible and match the JAX package's sample streams bit for bit.
 ``Viewport.image()`` runs the postprocess pipeline on the device and
-returns the uint8 sRGB image on the host.  Checkpointing and adaptive
-rendering wait (ROADMAP queue 1, item 7).
+returns the uint8 sRGB image on the host.  ``Viewport.save_checkpoint`` /
+``load_checkpoint`` persist and resume the render state
+(``render/checkpoint.py``); ``trace_pixels`` traces any set of pixel ids,
+the work unit of ``render/adaptive.py``.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from ..sampler.sampler import (
 )
 from ..scene.camera import generate_rays
 from ..scene.types import Camera, SceneData, SceneMeta
+from .checkpoint import load_checkpoint, save_checkpoint
 from .film import Film, accumulate_frame, average_radiance, make_film
 from .postprocess import PostprocessParams, postprocess, to_u8
 
@@ -66,9 +69,28 @@ def trace_rows(scene: SceneData, meta: SceneMeta, cam: Camera, pass_idx: int, ha
     """Camera rays + integrator for one band of pixel rows: the
     differentiable entry point.  Radiance carries the autograd graph of
     every scene table and camera tensor that requires grad (materials,
-    lights, the camera pose); hits do not, since traversal is detached."""
+    lights, the camera pose); hits do not, since traversal is detached.
+    Samples depend only on the global pixel id, pass and seed, so any row
+    partitioning gives the same radiance."""
+    cx, cy, pixel_ids = pixel_grid(vp.width, vp.height, rows, row0, device=cam.tan_half_fov.device)
+    return _trace_at(scene, meta, cam, cx, cy, pixel_ids, pass_idx, halton, vp, params)
+
+
+def trace_pixels(scene: SceneData, meta: SceneMeta, cam: Camera, pixel_ids: torch.Tensor, pass_idx: int, halton,
+                 vp: ViewportParams, params: RenderParams):
+    """Camera rays + integrator for any (padded) set of global pixel ids:
+    the adaptive renderer's work unit.  Samples are keyed by the global
+    pixel id, so each pixel's radiance is the one a full-frame pass gives
+    it."""
+    xs = pixel_ids % vp.width
+    ys = pixel_ids // vp.width
+    cx = (xs.to(torch.float32) + 0.5) / vp.width
+    cy = 1.0 - (ys.to(torch.float32) + 0.5) / vp.height
+    return _trace_at(scene, meta, cam, cx, cy, pixel_ids, pass_idx, halton, vp, params)
+
+
+def _trace_at(scene, meta, cam, cx, cy, pixel_ids, pass_idx, halton, vp, params):
     dev = cam.tan_half_fov.device
-    cx, cy, pixel_ids = pixel_grid(vp.width, vp.height, rows, row0, device=dev)
     # per-pass Gaussian AA jitter shared by all pixels
     u32 = lambda x: torch.tensor(x & 0xFFFFFFFF, dtype=torch.int64, device=dev)
     u1 = u32_to_unit_float(hash_u32(u32(pass_idx * 2654435761 + vp.seed)))
@@ -185,3 +207,32 @@ class Viewport:
             "total_box_tests": self.total_box_tests,
             "total_tri_tests": self.total_tri_tests,
         }
+
+    def save_checkpoint(self, path: str):
+        """Persist render state; resumable via :meth:`load_checkpoint`.
+
+        State = film + pass counter + seed: sample streams are keyed by
+        (pixel, pass, dim), so resuming continues bit for bit."""
+        save_checkpoint(path, self.film, self.vp_params.seed,
+                        extra={"total_rays": self.total_rays, "total_shadow_rays": self.total_shadow_rays})
+        return self
+
+    def load_checkpoint(self, path: str):
+        """Restore render state saved by :meth:`save_checkpoint` (by either
+        package) onto this viewport's device.  Raises ValueError on a film
+        of another shape or another seed."""
+        film, seed, meta = load_checkpoint(path, self.device)
+        if tuple(film.sum.shape) != (self.vp_params.height, self.vp_params.width, 3):
+            raise ValueError(
+                f"checkpoint film {tuple(film.sum.shape[:2])} does not match viewport "
+                f"{(self.vp_params.height, self.vp_params.width)}"
+            )
+        if seed != self.vp_params.seed:
+            raise ValueError(
+                f"checkpoint seed {seed} != viewport seed {self.vp_params.seed}; "
+                "resuming would change the sample streams"
+            )
+        self.film = film
+        self.total_rays = float(meta.get("total_rays", 0.0))
+        self.total_shadow_rays = float(meta.get("total_shadow_rays", 0.0))
+        return self

@@ -35,7 +35,8 @@ def test_port_has_the_slice_modules():
               "color.colorhelpers", "ops.textures", "math.distribution", "io.exr", "io.bmp",
               "render.postprocess", "ops.wave_traverse", "parallel.mesh",
               "integrators.light_tracer", "integrators.vcm", "integrators.debug", "ops.hashgrid", "cli",
-              "__main__", "io.png"):
+              "__main__", "io.png", "utils", "utils.logger", "utils.profiler", "math.packed",
+              "render.adaptive", "render.checkpoint", "render.path_debug"):
         assert f"raytracer_tpu_torch.{m}" in mods, m
 
 

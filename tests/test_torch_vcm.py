@@ -26,7 +26,8 @@ Held (stated tolerances; measured worst in brackets):
 - one pass (pass 1) on the 2k-triangle bench mesh under wave2 with the
   reference's Pallas kernel in interpret mode at K = 8, same tolerance
   (8.6e-6 absolute, 1.0e-5 relative);
-- ``axis_name`` raises ``NotImplementedError``.
+- ``axis_name``, a process group of one rank, gives the plain pass bit for
+  bit.
 """
 
 import os
@@ -174,11 +175,24 @@ def test_grid_aligned_walls_move_photons_across_cells():
     assert (dist.min(1) < 2e-5).all()
 
 
-def test_axis_name_waits():
+def test_axis_name_waits(tmp_path):
+    """``axis_name`` no longer waits: a ``torch.distributed`` group of one
+    gloo rank sums the splat frame and gathers the photons over itself, and
+    the pass equals the plain pass bit for bit (groups of 2 and 4 ranks:
+    ``tests/test_torch_parallel.py``)."""
+    import torch.distributed as dist
+
     _, (ps, pm, pc) = both()
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        vcm.render_pass_vcm(ps, pm, pc, make_film(4, 4, "cpu"), 0, None, ViewportParams(4, 4), RenderParams(),
-                            axis_name="rows")
+    args = (ps, pm, pc, make_film(SIZE, SIZE, "cpu"), 1, None, ViewportParams(SIZE, SIZE, seed=0),
+            RenderParams(max_depth=LENGTH), vcm.VcmParams(max_path_length=LENGTH))
+    plain = vcm.render_pass_vcm(*args)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rendezvous'}", world_size=1, rank=0)
+    try:
+        banded = vcm.render_pass_vcm(*args, rows=SIZE, row0=0, axis_name=dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+    assert banded.num_passes == plain.num_passes == 1
+    assert torch.equal(banded.sum, plain.sum) and float(plain.sum.mean()) > 0
 
 
 @pytest.fixture
