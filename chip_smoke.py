@@ -196,7 +196,7 @@ Phases (any failure exits non-zero before the last line):
     (vertices, ids and the end equal, floats within rtol 1e-5; one-ray
     wave2 windows on the hall, held against the CPU port's bvh walk, since
     wave2's plain twin takes minutes on the hall on the CPU).  (d) every packed codec over 2^20 lanes, the
-    card's codes bit-equal to the CPU's.
+    card's codes and decoded values bit-equal to the CPU's.
 22. multi-device (tools/torch_check_parallel.py): (a) this process as an
     NCCL group of one (a file:// rendezvous under _build/parallel):
     render_pass_sharded on mesh200k_mis at 512^2, 2 passes, bit-equal to
@@ -209,6 +209,33 @@ Phases (any failure exits non-zero before the last line):
     equal, VCM within rtol 2e-4 / atol 2e-5 and the train step within the
     reference's bounds of (a), wave2_mt launched in each rank; each child's
     exit code read with a timeout.
+23. the last public helpers and the materials-test scene
+    (tools/torch_check_helpers.py): (a) the new helpers of math/vec.py,
+    math/sampling.py, math/distribution.py (searchsorted_rows),
+    ops/intersect.py (gather_prim) and render/film.py (error_estimate) over
+    2^20 seeded lanes on the card against the CPU port: bit-equal, or within
+    the bound that names the op that rounds otherwise (BOUNDS); (b)
+    scene/presets.py::sphere_grid (64 spheres, 8 BSDFs, a background light)
+    at 32^2 on the card against the CPU; (c) sphere_grid_mis at 512^2, depth
+    6, MIS (1 warm-up + 4 timed passes): Mray/s, rays and shadow rays, peak
+    memory, finite radiance, no traversal kernel launched (analytic prims
+    only), one profiled pass with its device idle share.
+24. the tools and the entry points: (a) tools/torch_traversal_bench.py at
+    200k triangles and 2^20 rays, every engine (cluster, bvh, pallas, wave,
+    wave2, sorted-pallas) closest-hit and any-hit on coherent and incoherent
+    rays: ms, Mray/s, agreement with wave2, peak memory, window, each
+    engine's kernel launches into its row's by_path; (b) mesh200k at 512^2,
+    depth 6, MIS under the cluster mode (one pass; it has no kernel): ms,
+    overflow, tri ids against wave2's on its camera and bounce windows; (c)
+    a BVH over more than 1,000,000 nodes (a 2M-triangle heightfield),
+    bvh_walk against its twin and against wave2; (d) the oracles
+    tools/torch_check_wave2.py and tools/torch_check_pallas.py pass; (e)
+    tools/torch_microbench.py's eight lines; (f) entry() on the card,
+    dryrun_multichip(1) (NCCL) and dryrun_multichip(2) (two gloo ranks on
+    this card): finite loss and films, the forward bands bit-equal to one
+    process's render_pass; (g) tools/torch_scaling_bench.py at 1 and 2
+    ranks, every band bit-equal to the one-process render's rows; (h)
+    tools/torch_probe_render.py, one timed pass of mesh200k at 512^2.
 
 Every line goes to raytracer_tpu_torch/_build/chip_smoke.log too (truncated
 at the start of a run), since the tail of the output may be cut.  The last
@@ -241,28 +268,39 @@ import bench_mesh  # noqa: E402  (numpy-only scene generator)
 import torch_check_gradients as tcg  # noqa: E402
 import torch_check_features as tfx  # noqa: E402
 import torch_check_frameloop as tfl  # noqa: E402
+import torch_check_helpers as tch  # noqa: E402
 import torch_check_integrators as tci  # noqa: E402
+import torch_check_pallas as tcpal  # noqa: E402
 import torch_check_parallel as tpar  # noqa: E402
 import torch_check_textures as tctex  # noqa: E402
 import torch_check_traverse as tct  # noqa: E402
+import torch_check_wave2 as tcw2  # noqa: E402
 import torch_gen_interior  # noqa: E402
+import torch_microbench as tmb  # noqa: E402
 import torch_probe_launch as tpl  # noqa: E402
+import torch_probe_render as tpr  # noqa: E402
+import torch_scaling_bench as tsb  # noqa: E402
+import torch_traversal_bench as ttb  # noqa: E402
 from torch_check_traverse import bound_ms, coherent_rays, incoherent_rays, vec  # noqa: E402
 
+from raytracer_tpu_torch import entry as port_entry  # noqa: E402
 from raytracer_tpu_torch.integrators.path_tracer import RenderParams  # noqa: E402
 from raytracer_tpu_torch.io.scene_loader import load_scene  # noqa: E402
 from raytracer_tpu_torch.math.transform import RigidTransform  # noqa: E402
 from raytracer_tpu_torch.ops import bvh_traverse as bt  # noqa: E402
+from raytracer_tpu_torch.ops.cluster_traverse import cluster_closest_hit  # noqa: E402
+from raytracer_tpu_torch.parallel.launch import backend_for  # noqa: E402
 from raytracer_tpu_torch.ops import cuda_build  # noqa: E402
 from raytracer_tpu_torch.ops import pallas_traverse as pt  # noqa: E402
 from raytracer_tpu_torch.ops import traverse  # noqa: E402
 from raytracer_tpu_torch.ops import wave2_traverse as w2  # noqa: E402
 from raytracer_tpu_torch.ops.launch_probe import add_one  # noqa: E402
-from raytracer_tpu_torch.render.film import average_radiance  # noqa: E402
-from raytracer_tpu_torch.render.renderer import Viewport, ViewportParams, pixel_grid  # noqa: E402
+from raytracer_tpu_torch.render.film import average_radiance, make_film  # noqa: E402
+from raytracer_tpu_torch.render.renderer import Viewport, ViewportParams, pixel_grid, render_pass  # noqa: E402
 from raytracer_tpu_torch.sampler.sampler import make_stream  # noqa: E402
 from raytracer_tpu_torch.scene import bvh as bvh_module  # noqa: E402
-from raytracer_tpu_torch.scene.bvh import bvh_stats  # noqa: E402
+from raytracer_tpu_torch.scene.bvh import build_bvh_over_triangles, bvh_stats  # noqa: E402
+from raytracer_tpu_torch.scene.clusters import build_clusters  # noqa: E402
 from raytracer_tpu_torch.scene.camera import generate_rays, make_camera  # noqa: E402
 from raytracer_tpu_torch.scene.presets import cornell_box, cornell_camera_kw  # noqa: E402
 
@@ -897,6 +935,217 @@ def parallel_phase(mesh, mesh_json, mt, dev):
     log(f"phase 22 (multi-device) wall time {time.perf_counter() - t22:.1f} s")
 
 
+def helpers_phase(dev, smi):
+    """Phase 23 (tools/torch_check_helpers.py): (a) every new helper of
+    math/vec.py, math/sampling.py, math/distribution.py, ops/intersect.py and
+    render/film.py over 2^20 lanes on the card against the CPU port: bit-equal,
+    or within the bound of tch.BOUNDS with the op that rounds otherwise; (b)
+    sphere_grid at 32^2 on the card against the CPU; (c) sphere_grid at 512^2,
+    depth 6, MIS (1 warm-up + 4 timed passes, one profiled): its analytic path
+    launches no kernel."""
+    t23 = time.perf_counter()
+    tch.helpers_against_cpu(dev, log)
+    tch.sphere_grid_against_cpu(dev, log)
+    scene, meta, cam = tch.sphere_grid_scene(dev)
+    check(scene.prims.count == 64 and scene.tris is None, "sphere_grid holds 64 spheres and no triangle")
+    vp = Viewport(scene, meta, cam, ViewportParams(512, 512, seed=0), RenderParams(max_depth=6, mis=True), device=dev)
+    counts0 = launch_counts()
+    dt, rays, shadow, overflow, radiance = timed_render(vp, 4, smi, "sphere_grid_mis")
+    check(launch_counts() == counts0, "the sphere_grid render (analytic prims only) launched no traversal kernel")
+    check(bool(np.isfinite(radiance).all()) and radiance.mean() > 0 and overflow == 0,
+          "sphere_grid_mis: radiance finite with non-zero mean, no overflow")
+    device_ms = profiled(lambda: vp.render(1), "sphere_grid_mis pass")
+    log(f"sphere_grid_mis: device time {device_ms:.1f} ms of an unprofiled pass's {dt / 4 * 1e3:.1f} ms: idle "
+        f"{1 - device_ms / (dt / 4 * 1e3):.3f}; mean radiance {radiance.mean():.6f} ({smi})")
+    RENDERS.append(f"summary sphere_grid_mis device: {device_ms:.1f} ms of device time in a profiled pass, idle "
+                   f"{1 - device_ms / (dt / 4 * 1e3):.3f}")
+    log(f"phase 23 (helpers and sphere_grid) wall time {time.perf_counter() - t23:.1f} s")
+
+
+def big_bvh_against_wave2(bvh, cs, o, d, dev, label, reach=4.0):
+    """tct.walk_against_wave2 on the 2M-triangle grid: the same rays hit, t
+    within 1e-6 relative where both hit, occlusion equal.  Tri ids are
+    logged, not held: on a grid of 2M small triangles a ray through a
+    shared edge can fall inside both triangles for one Möller-Trumbore
+    spelling and inside one for the other, at t an ulp or two apart
+    (tct.bvh_against_wave2 holds the driven scenes' ids but on exact ties)."""
+    counts, walk, (w_t, w_tri), _ = tct.walk_against_wave2(bvh, cs, o, d, reach, dev)
+    differ = torch.nonzero(walk.tri != w_tri).flatten().tolist()
+    log(f"bvh vs wave2 [2M-triangle heightfield {label} window]: {counts}; differing rays (bvh tri, t; wave2 tri, "
+        f"t): " + ", ".join(f"{i}: ({int(walk.tri[i])}, {float(walk.t[i]):.9g}; {int(w_tri[i])}, {float(w_t[i]):.9g})"
+                            for i in differ[:8]))
+    check(torch.equal(walk.tri >= 0, w_tri >= 0), f"bvh and wave2 hit the same rays (2M-triangle grid, {label})")
+    check(counts["max_rel_t"] <= 1e-6, f"bvh and wave2 t within 1e-6 relative (2M-triangle grid, {label})")
+    check(counts["occluded_differ"] == 0, f"bvh and wave2 occlusion equal (2M-triangle grid, {label})")
+    return counts
+
+
+def _add_path(rows, kernel, path, launches, windows=None, windows_of=None):
+    entry = {"launches": launches}
+    if windows is not None:
+        entry["windows"] = windows
+    if windows_of is not None:
+        entry["windows_of"] = windows_of
+    rows[kernel].setdefault("by_path", {})[path] = entry
+
+
+def tools_phase(mesh, rows, dev, smi):
+    """Phase 24: the tools and the entry points on the card.  (a)
+    tools/torch_traversal_bench.py at 200k triangles and 2^20 rays, every
+    engine's launches counted into its kernel's by_path; (b) one 512^2 MIS
+    depth-6 pass of mesh200k (``mesh``) under the ``cluster`` mode, its tri
+    ids against wave2's on the camera and bounce windows; (c) a BVH over
+    more than a million nodes (2M triangles), bvh_walk against its twin and
+    against wave2; (d) the oracles tools/torch_check_wave2.py and
+    tools/torch_check_pallas.py; (e) tools/torch_microbench.py; (f)
+    entry() and dryrun_multichip(1) (NCCL) and (2) (gloo on this card), the
+    bands bit-equal to one process's render_pass; (g)
+    tools/torch_scaling_bench.py at 1 and 2 ranks; (h)
+    tools/torch_probe_render.py, one pass."""
+    t24 = time.perf_counter()
+    mscene, mmeta, mcam = mesh
+
+    # --- a. every engine at 200k triangles, 2^20 rays ----------------------------
+    bench, results = ttb.run(200_000, 1 << 20, dev=dev, log=log)
+    kernel_of = {"wave2": "wave2_mt", "pallas": "phase2_grid", "sorted": "phase2_stream", "bvh": "bvh_walk"}
+    for engine, kernel in kernel_of.items():
+        n = sum(results[label][engine][q]["launches"].get(kernel, 0) for label in results for q in ("closest", "any"))
+        _add_path(rows, kernel, f"traversal_bench {engine} (200k tris, 2^20 coherent + incoherent rays)", n)
+        check(n > 0, f"traversal_bench: the {engine} engine launched {kernel}")
+    for label in results:
+        for engine, fig in results[label].items():
+            RENDERS.append(f"summary traversal_bench [{label}] {engine}: closest {fig['closest']['ms']:.2f} ms "
+                           f"({fig['closest']['mrays_per_sec']:.2f} Mray/s, agree {fig['closest'].get('agree_vs_wave2', 1.0):.5f}, "
+                           f"ovf {fig['closest']['overflow_share']:.4f}), any-hit {fig['any']['ms']:.2f} ms "
+                           f"({fig['any']['mrays_per_sec']:.2f} Mray/s, agree {fig['any'].get('agree_vs_wave2', 1.0):.5f}), "
+                           f"peak {max(fig['closest']['peak_gib'], fig['any']['peak_gib']):.2f} GiB")
+    del bench, results
+    log(f"phase 24 a (traversal bench) wall time {time.perf_counter() - t24:.1f} s")
+
+    # --- b. mesh200k at 512^2 under the cluster mode ------------------------------
+    t0 = time.perf_counter()
+    traverse.set_traversal_mode("cluster")
+    vp = Viewport(mscene, mmeta, mcam, ViewportParams(512, 512, seed=0), RenderParams(max_depth=6, mis=True), device=dev)
+    counts0 = launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    vp.render(1)
+    radiance = vp.radiance()
+    ms = (time.perf_counter() - t1) * 1e3
+    traverse.set_traversal_mode("auto")
+    prog = vp.progress()
+    log(f"mesh200k_mis [cluster] one 512^2 pass: {ms:.1f} ms, rays {prog['total_rays']:.0f}, shadow rays "
+        f"{prog['total_shadow_rays']:.0f}, overflow {prog['total_traversal_overflow']:.0f}, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, mean radiance {radiance.mean():.6f} ({smi})")
+    check(launch_counts() == counts0, "the cluster mode launched no kernel (plain PyTorch)")
+    check(bool(np.isfinite(radiance).all()) and radiance.mean() > 0, "mesh200k_mis [cluster]: radiance finite")
+    o, d = camera_window(mcam, dev)
+    w = w2.wave2_closest_hit(mscene.clusters, vec(o, dev), vec(d, dev), 3.0e38)
+    agree = {}
+    for window, (wo, wd) in (("camera", (o, d)), ("bounce", bounce_window(o, d, w[0], w[1] >= 0, dev))):
+        c_hit = cluster_closest_hit(mscene.clusters, vec(wo, dev), vec(wd, dev), 3.0e38)
+        w_hit = w2.wave2_closest_hit(mscene.clusters, vec(wo, dev), vec(wd, dev), 3.0e38)
+        both = ~c_hit[4] & ~w_hit[4]
+        agree[window] = float((c_hit[1] == w_hit[1])[both].float().mean())
+        log(f"mesh200k [{window} window] cluster against wave2: tri ids agree on {agree[window]:.5f} of the "
+            f"{int(both.sum())} rays neither flags ({int(c_hit[4].sum())} flagged by cluster)")
+    RENDERS.append(f"summary mesh200k_mis [cluster] 512^2: {ms:.1f} ms for one pass, overflow "
+                   f"{prog['total_traversal_overflow']:.0f}, tri agreement with wave2 {agree}")
+    log(f"phase 24 b (cluster mode) wall time {time.perf_counter() - t0:.1f} s")
+
+    # --- c. a BVH over more than a million nodes ----------------------------------
+    t0 = time.perf_counter()
+    v0, e1, e2 = ttb.make_mesh(2_000_000, np.random.default_rng(3))
+    tri_v = np.stack([v0, v0 + e1, v0 + e2], axis=1).astype(np.float32)
+    zero = np.zeros_like(tri_v)
+    (lv0, le1, le2, *_), big = build_bvh_over_triangles(tri_v, zero, zero[..., :2], np.zeros(len(tri_v), np.int32),
+                                                        device=dev)
+    check(big.num_nodes > 1_000_000, f"a BVH of {big.num_nodes} nodes over {len(tri_v)} triangles, built")
+    leaf_cs = build_clusters(lv0, le1, le2, device=dev)
+    before, windows = bt.bvh_walk.launches, {}
+    for window, (bo, bd) in (("coherent", coherent_rays(w2.SUBWAVE)),
+                             ("incoherent", incoherent_rays(w2.SUBWAVE, np.random.default_rng(5)))):
+        walk = tct.check_bvh_walk(big, bo, bd, 4.0, dev, log, label=f"2M-triangle heightfield {window} window")
+        walk["wave2"] = big_bvh_against_wave2(big, leaf_cs, bo, bd, dev, window)
+        windows[window] = walk
+    _add_path(rows, "bvh_walk", f"bvh over {big.num_nodes} nodes (2M-triangle heightfield)",
+              bt.bvh_walk.launches - before, windows=windows)
+    row = rows["bvh_walk"]
+    row["max_abs_err"] = max([row["max_abs_err"]] + [w[k]["max_abs_err"] for w in windows.values()
+                                                     for k in ("closest", "any-hit")])
+    del big, leaf_cs
+    log(f"phase 24 c (BVH over a million nodes) wall time {time.perf_counter() - t0:.1f} s")
+
+    # --- d. the oracles -------------------------------------------------------------
+    t0 = time.perf_counter()
+    counts0 = launch_counts()
+    check(tcw2.check(dev, log=log), "tools/torch_check_wave2.py: wave2 agrees with the cluster oracle")
+    counts1 = launch_counts()
+    check(tcpal.check(dev, log=log), "tools/torch_check_pallas.py: the block-candidate engine within the bars")
+    counts2 = launch_counts()
+    _add_path(rows, "wave2_mt", "check_wave2 oracle (20k tris, 8,192 rays)", counts1["wave2_mt"] - counts0["wave2_mt"])
+    _add_path(rows, "phase2_grid", "check_pallas oracle (500 / 20k tris)",
+              counts2["phase2_grid"] - counts1["phase2_grid"])
+    check(counts1["wave2_mt"] > counts0["wave2_mt"] and counts2["phase2_grid"] > counts1["phase2_grid"],
+          "the oracles launched wave2_mt and phase2_grid")
+    log(f"phase 24 d (oracles) wall time {time.perf_counter() - t0:.1f} s")
+
+    # --- e. the micro-benchmarks --------------------------------------------------------
+    t0 = time.perf_counter()
+    before = w2.mt_chunks.launches
+    bench_lines = tmb.main([], out=log)
+    check([r["bench"] for r in bench_lines] == list(tmb.BENCHES), "the eight micro-benchmarks ran")
+    _add_path(rows, "wave2_mt", "microbench scene_traverse_mesh_bvh (2^20 rays, random_mesh_scene)",
+              w2.mt_chunks.launches - before)
+    RENDERS.append("summary microbench: " + ", ".join(f"{r['bench']} {r['rate']} {r['unit']}" for r in bench_lines))
+    log(f"phase 24 e (microbench) wall time {time.perf_counter() - t0:.1f} s")
+
+    # --- f. entry() and dryrun_multichip -----------------------------------------------------
+    t0 = time.perf_counter()
+    fn, args = port_entry.entry(dev)
+    film, _ = fn(*args)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(film.sum).all()) and float(film.sum.mean()) > 0, "entry(): a finite 64^2 film")
+    scene, meta, cam = port_entry.flagship_scene(dev)
+    dry = {}
+    for n in (1, 2):
+        backend = backend_for(n, dev)  # NCCL for one rank on this card, gloo for two sharing it
+        t1 = time.perf_counter()
+        got = port_entry.dryrun_multichip(n, dev, work_dir=os.path.join(ROOT, "raytracer_tpu_torch", "_build",
+                                                                        f"dryrun{n}"))
+        vp, params = port_entry.dryrun_params(n)
+        one = render_pass(scene, meta, cam, make_film(vp.width, vp.height, dev), 0, None, vp, params)[0].sum.cpu().numpy()
+        same = np.array_equal(got["film"], one)
+        dry[n] = (got["loss"], time.perf_counter() - t1, got["backend"])
+        log(f"dryrun_multichip({n}) [{got['backend']}]: loss {got['loss']:.6f}, forward bands "
+            f"{'bit-equal' if same else 'DIFFERENT'} to one process's render_pass, VCM finite, host bytes "
+            f"{got['host_bytes']}; {time.perf_counter() - t1:.1f} s from spawn to the last exit")
+        check(got["backend"] == backend, f"dryrun_multichip({n}) ran over {backend}")
+        check(same and np.isfinite(got["loss"]), f"dryrun_multichip({n}): finite loss, bands bit-equal to one process")
+    RENDERS.append("summary entry points: entry() 64^2 film finite; " + ", ".join(
+        f"dryrun_multichip({n}) [{b}] loss {loss:.6f} in {sec:.1f} s" for n, (loss, sec, b) in dry.items()))
+    log(f"phase 24 f (entry points) wall time {time.perf_counter() - t0:.1f} s")
+
+    # --- g. scaling over 1 and 2 ranks ---------------------------------------------------
+    t0 = time.perf_counter()
+    per, summary = tsb.run(dev, (1, 2), 256, 4, log=log, out=log)
+    RENDERS.append(f"summary scaling_bench 256^2 Cornell: " + "; ".join(
+        f"{n} ranks [{v['backend']}] {v['value']} Mray/s, {v['seconds_per_pass']} s a pass" for n, v in per.items())
+        + f"; {summary['metric']} {summary['value']}")
+    log(f"phase 24 g (scaling) wall time {time.perf_counter() - t0:.1f} s")
+
+    # --- h. the render probe, one pass -------------------------------------------------------
+    before = w2.mt_chunks.launches
+    probe = tpr.probe(mscene, mmeta, mcam, dev, n_passes=1, log=log)
+    _add_path(rows, "wave2_mt", "probe_render (mesh200k 512^2, 2 passes)", w2.mt_chunks.launches - before)
+    RENDERS.append(f"summary probe_render mesh200k 512^2: first pass {probe['first_s']:.2f} s, "
+                   f"{probe['ms_a_pass']:.1f} ms a pass, {probe['mrays_per_sec']:.4f} Mray/s")
+    for kernel in ("wave2_mt", "phase2_grid", "phase2_stream", "bvh_walk"):
+        for path, entry in rows[kernel]["by_path"].items():
+            check(entry["launches"] > 0, f"{kernel}: launched {entry['launches']} times on {path}")
+    log(f"phase 24 (tools and entry points) wall time {time.perf_counter() - t24:.1f} s")
+
+
 def log_bvh_builds():
     """From here on, every BVH a scene build makes (scene/bvh.py's
     build_bvh_over_triangles, which scene/build.py looks up at each call) is
@@ -1116,6 +1365,12 @@ def run():
                            for k in ("closest", "any-hit")),
         **{k: top[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
         "by_path": by_path}
+
+    # --- 23. the new helpers and the materials-test scene ----------------------------
+    helpers_phase(dev, smi)
+
+    # --- 24. the tools and the entry points ---------------------------------------------
+    tools_phase((mscene, mmeta, mcam), rows, dev, smi)
 
     check("PIL" not in sys.modules, "no phase imported PIL")
     for mod in ("jax", "raytracer_tpu"):

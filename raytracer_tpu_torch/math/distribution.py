@@ -137,6 +137,13 @@ def sample_2d(dist: Distribution2D, u1, u2):
     return u, v, dist.density[iy, ix]
 
 
+def searchsorted_rows(cdf_rows: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Per-row search (the reference's ``jax_searchsorted_rows``):
+    ``cdf_rows`` (..., K) sorted along the last axis, ``u`` (...) -> the
+    rightmost insertion index, the count of entries <= u, as int32."""
+    return torch.searchsorted(cdf_rows.contiguous(), u.contiguous()[..., None], right=True)[..., 0].to(torch.int32)
+
+
 def pdf_2d(dist: Distribution2D, u, v) -> torch.Tensor:
     """Joint density at (u, v): the MIS counterpart of :func:`sample_2d`."""
     h, w = dist.density.shape

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from .vec import Vec3
+from .vec import Vec3, sqrt_rn
 
 _M32 = 0xFFFFFFFF
 
@@ -65,7 +65,7 @@ def oct_decode(p: torch.Tensor) -> Vec3:
     t = torch.clamp_min(-z, 0.0)
     x = qx - _sign1(qx) * t
     y = qy - _sign1(qy) * t
-    inv_len = 1.0 / torch.sqrt(torch.clamp_min(x * x + y * y + z * z, 1e-20))
+    inv_len = 1.0 / sqrt_rn(torch.clamp_min(x * x + y * y + z * z, 1e-20))
     return Vec3(x * inv_len, y * inv_len, z * inv_len)
 
 

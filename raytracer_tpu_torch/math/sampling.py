@@ -32,6 +32,11 @@ def sphere_cap_pdf(cos_theta_max):
     return 1.0 / (TWO_PI * torch.clamp_min(1.0 - cos_theta_max, 1e-7))
 
 
+def cos_hemisphere_pdf(cos_theta):
+    # + 0.0 turns the -0.0 that clamp_min keeps into jnp.maximum's +0.0
+    return (torch.clamp_min(cos_theta, 0.0) + 0.0) * INV_PI
+
+
 def pdf_area_to_solid_angle(pdf_a, distance, cos_there):
     """Area-measure pdf to solid angle."""
     return pdf_a * distance * distance / torch.clamp_min(torch.abs(cos_there), 1e-4)
@@ -74,6 +79,12 @@ def sample_square(u1, u2):
     return 2.0 * u1 - 1.0, 2.0 * u2 - 1.0
 
 
+def sample_triangle_barycentric(u1, u2):
+    """(u, v) barycentric coordinates, uniform over the triangle."""
+    t = torch.sqrt(u1)
+    return 1.0 - t, u2 * t
+
+
 def sample_sphere(u1, u2) -> Vec3:
     """Uniform direction on the unit sphere."""
     z = 2.0 * u2 - 1.0
@@ -107,12 +118,7 @@ def sample_gaussian2(u1, u2):
 
 def sample_cone(cos_theta_max, u1, u2) -> Vec3:
     """Uniform direction in a +Z cone of half-angle acos(cos_theta_max)."""
-    cos_theta = 1.0 + u1 * (cos_theta_max - 1.0)
-    s2 = 1.0 - cos_theta * cos_theta
-    pos = s2 > 0.0
-    sin_theta = torch.where(pos, torch.sqrt(torch.where(pos, s2, 1.0)), 0.0)
-    phi = TWO_PI * u2
-    return Vec3(sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta)
+    return spherical_to_cartesian(TWO_PI * u2, 1.0 + u1 * (cos_theta_max - 1.0))
 
 
 # --- orthonormal basis ---------------------------------------------------------
@@ -132,6 +138,16 @@ def local_to_world(v_local: Vec3, t: Vec3, b: Vec3, n: Vec3) -> Vec3:
 
 def world_to_local(v_world: Vec3, t: Vec3, b: Vec3, n: Vec3) -> Vec3:
     return Vec3(dot(v_world, t), dot(v_world, b), dot(v_world, n))
+
+
+def spherical_to_cartesian(phi, cos_theta) -> Vec3:
+    """Unit direction at azimuth ``phi`` and polar cosine ``cos_theta``;
+    AD-safe at |cos_theta| = 1 (as ``sample_cone``): the square root never
+    sees 0, so its gradient stays finite there."""
+    s2 = 1.0 - cos_theta * cos_theta
+    pos = s2 > 0.0
+    sin_theta = torch.where(pos, torch.sqrt(torch.where(pos, s2, 1.0)), 0.0)
+    return Vec3(sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta)
 
 
 def cartesian_to_spherical_uv(d: Vec3):

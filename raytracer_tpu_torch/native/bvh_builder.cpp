@@ -163,11 +163,13 @@ extern "C" {
 
 // Pass 1: build the tree. Returns the node count (<= 2n-1), or -1 on error.
 // Caller allocates outputs for the worst case:
-//   nodes_box (2n, 8) f32; node_first (2n) i32; perm (n) i32;
-//   padded_ids (4n) i32; out_num_padded: [0] = padded slot count.
+//   nodes_box (2n, 8) f32 (lanes 6 and 7 zero); node_first (2n) i32;
+//   perm (n) i32; padded_ids (4n) i32; out_num_padded: [0] = padded slot
+//   count; node_left, node_right, node_axis (2n) i32: each node's children
+//   (-1 at a leaf) and split axis, the input of bvh_thread_links.
 int bvh_build(const float* box_min, const float* box_max, int n, int max_leaf,
               float* nodes_box, int* node_first, int* perm, int* padded_ids,
-              int* out_num_padded) {
+              int* out_num_padded, int* node_left, int* node_right, int* node_axis) {
   if (n <= 0) return -1;
   Builder b{box_min, box_max, n, max_leaf > 0 ? max_leaf : kLeafSize};
   b.Build();
@@ -182,6 +184,9 @@ int bvh_build(const float* box_min, const float* box_max, int n, int max_leaf,
     }
     nodes_box[8 * i + 6] = 0.0f;
     nodes_box[8 * i + 7] = 0.0f;
+    node_left[i] = nd.left;
+    node_right[i] = nd.right;
+    node_axis[i] = nd.axis;
     if (nd.left < 0) {  // leaf: pad to kLeafSize slots
       node_first[i] = cursor;
       for (int j = 0; j < kLeafSize; j++)
@@ -193,29 +198,14 @@ int bvh_build(const float* box_min, const float* box_max, int n, int max_leaf,
   }
   std::memcpy(perm, b.perm.data(), sizeof(int) * n);
   out_num_padded[0] = cursor;
-
-  // stash children/axis in nodes_box pad lanes for pass 2 (link threading)
-  for (int i = 0; i < m; i++) {
-    const BuildNode& nd = b.nodes[i];
-    nodes_box[8 * i + 6] = static_cast<float>(nd.left);
-    nodes_box[8 * i + 7] = static_cast<float>(nd.axis * 1000000 + std::max(nd.right, 0));
-  }
   return m;
 }
 
-// Pass 2: thread hit/miss links for all 8 octants.
-// nodes_box as produced by bvh_build (children stashed in lanes 6/7).
-// hit_links / miss_links are (8, m) i32. Clears the stash lanes afterwards.
-void bvh_thread_links(float* nodes_box, int m, int* hit_links, int* miss_links) {
-  std::vector<int> lefts(m), rights(m), axes(m);
-  for (int i = 0; i < m; i++) {
-    lefts[i] = static_cast<int>(nodes_box[8 * i + 6]);
-    const int packed = static_cast<int>(nodes_box[8 * i + 7]);
-    axes[i] = packed / 1000000;
-    rights[i] = packed % 1000000;
-    nodes_box[8 * i + 6] = 0.0f;
-    nodes_box[8 * i + 7] = 0.0f;
-  }
+// Pass 2: thread hit/miss links for all 8 octants of the tree given by each
+// node's left and right child (-1 at a leaf) and split axis, node 0 the
+// root.  hit_links / miss_links are (8, m) i32.
+void bvh_thread_links(const int* lefts, const int* rights, const int* axes, int m,
+                      int* hit_links, int* miss_links) {
   std::vector<std::pair<int, int>> stack;
   stack.reserve(128);
   for (int octant = 0; octant < 8; octant++) {

@@ -152,6 +152,15 @@ def _gather_vec3(v: Vec3, idx) -> Vec3:
     return Vec3(v.x[idx], v.y[idx], v.z[idx])
 
 
+def gather_prim(prims: Primitives, idx):
+    """The primitives ``idx`` (clamped at 0, so a miss's -1 reads prim 0):
+    (kind, rotation, translation, params, material id, light id)."""
+    idx = torch.clamp_min(idx, 0).long()
+    rot = Rot3(_gather_vec3(prims.rot.r0, idx), _gather_vec3(prims.rot.r1, idx), _gather_vec3(prims.rot.r2, idx))
+    return (prims.kind[idx], rot, _gather_vec3(prims.trans, idx), _gather_vec3(prims.param, idx),
+            prims.material_id[idx], prims.light_id[idx])
+
+
 def eval_prim_frame(prims: Primitives, prim_id, origin: Vec3, direction: Vec3, t, time=None) -> PrimFrame:
     """Position / normal / uv / tangent frame at the closest analytic hits:
     sphere normal p/r with spherical uv, box face normal by dominant axis,
@@ -161,12 +170,9 @@ def eval_prim_frame(prims: Primitives, prim_id, origin: Vec3, direction: Vec3, t
     from ..math.sampling import build_onb
 
     idx = torch.clamp_min(prim_id, 0).long()
-    kind = prims.kind[idx]
-    rot = Rot3(_gather_vec3(prims.rot.r0, idx), _gather_vec3(prims.rot.r1, idx), _gather_vec3(prims.rot.r2, idx))
-    trans = _gather_vec3(prims.trans, idx)
+    kind, rot, trans, param, material_id, light_id = gather_prim(prims, idx)
     if time is not None:
         trans = trans + _gather_vec3(prims.vel, idx) * time
-    param = _gather_vec3(prims.param, idx)
     t = torch.clamp(t, 0.0, 1e12)
     pos_world = origin + direction * t
     p_local = rot.to_local(pos_world - trans)
@@ -211,6 +217,6 @@ def eval_prim_frame(prims: Primitives, prim_id, origin: Vec3, direction: Vec3, t
         bitangent=bitangent,
         tex_u=u,
         tex_v=v,
-        material_id=prims.material_id[idx],
-        light_id=prims.light_id[idx],
+        material_id=material_id,
+        light_id=light_id,
     )

@@ -44,6 +44,19 @@ def average_radiance(film: Film) -> torch.Tensor:
     return film.sum / float(max(film.num_passes, 1))
 
 
+def error_estimate(film: Film) -> torch.Tensor:
+    """(H, W) per-pixel relative error of the mean against the secondary
+    buffer's mean (the adaptive metric of ``Viewport.cpp:552-581``):
+    |sum/N - sec/M| summed over the channels, over the mean's channel sum
+    + 1e-4.  The divisors are tensors: CUDA turns a division by a Python
+    scalar into a multiply by its reciprocal, which rounds otherwise."""
+    n = film.sum.new_tensor(float(max(film.num_passes, 1)))
+    m = film.sum.new_tensor(float(max(film.num_secondary_passes, 1)))
+    a = film.sum / n
+    d = torch.abs(a - film.secondary_sum / m)
+    return (d[..., 0] + d[..., 1] + d[..., 2]) / (a[..., 0] + a[..., 1] + a[..., 2] + 0.0001)
+
+
 def splat(film: Film, px: torch.Tensor, py: torch.Tensor, color: Vec3, mask) -> Film:
     """Scatter-add a batch of film-space samples (the light tracer's and
     VCM's camera connections).  ``px`` / ``py`` are integer pixel coords;

@@ -9,7 +9,7 @@ reference falls back to a pure-Python tree builder
 (``_build_arrays_python``) when no C++ toolchain is there; the port has no
 such fallback, since a slower path could order ties differently.
 
-After the tree is built, ``bvh_thread_links`` threads skip links per ray
+After the tree is built, ``thread_links`` threads skip links per ray
 octant: for each of the 8 direction-sign combinations, a depth-first order
 that visits the near child first records ``hit`` (descend) and ``miss``
 (skip the subtree).  The walk of ``ops/bvh_traverse.py`` then needs one
@@ -27,16 +27,13 @@ import torch
 from .types import BVHFlat
 
 LEAF_SIZE = 4  # triangles per (padded) leaf
-# the native builder hands children to bvh_thread_links in float lanes as
-# axis * 1_000_000 + right child: a right child id of a million or more
-# would decode wrongly, so larger trees are refused
-MAX_LINKED_NODES = 1_000_000
 
 
 def _native_build(box_min: np.ndarray, box_max: np.ndarray):
     """Native sweep-SAH build of the items with these AABBs.  Returns
-    (nodes_box (M, 8) with the child stash, node_first (M,), perm (T,),
-    padded_ids (Tpad,), lib)."""
+    (nodes_box (M, 8), node_first (M,), perm (T,), padded_ids (Tpad,),
+    (left, right, axis): (M,) int32 arrays of every node's children, -1 at
+    a leaf, and its split axis)."""
     from ..native import load_library
 
     lib = load_library("bvh_builder")  # raises when g++ cannot build it
@@ -50,6 +47,7 @@ def _native_build(box_min: np.ndarray, box_max: np.ndarray):
     perm = np.zeros(n, np.int32)
     padded_ids = np.zeros(4 * n, np.int32)
     num_padded = np.zeros(1, np.int32)
+    tree = np.zeros((3, 2 * n), np.int32)
 
     def P(a, ty):
         return a.ctypes.data_as(ty)
@@ -57,30 +55,31 @@ def _native_build(box_min: np.ndarray, box_max: np.ndarray):
     m = lib.bvh_build(
         P(bmin, f32p), P(bmax, f32p), ctypes.c_int(n), ctypes.c_int(LEAF_SIZE),
         P(nodes_box, f32p), P(node_first, i32p), P(perm, i32p),
-        P(padded_ids, i32p), P(num_padded, i32p),
+        P(padded_ids, i32p), P(num_padded, i32p), P(tree[0], i32p), P(tree[1], i32p), P(tree[2], i32p),
     )
     if m <= 0:
         raise RuntimeError(f"native BVH build failed (returned {m}) for {n} triangles")
-    return nodes_box[:m], node_first[:m], perm.astype(np.int64), padded_ids[: int(num_padded[0])], lib
+    return (nodes_box[:m], node_first[:m], perm.astype(np.int64), padded_ids[: int(num_padded[0])],
+            tuple(tree[:, :m]))
 
 
-def _thread_links(nodes_box: np.ndarray, lib):
-    """Per-octant skip links (8, M) hit and miss, from the child stash of
-    ``nodes_box``'s lanes 6 and 7 (cleared on return)."""
-    m = nodes_box.shape[0]
-    if m > MAX_LINKED_NODES:
-        raise ValueError(
-            f"BVH of {m} nodes: the native builder's link stash decodes right-child ids "
-            f"below {MAX_LINKED_NODES:,} only; split the mesh or instance it"
-        )
-    f32p = ctypes.POINTER(ctypes.c_float)
+def thread_links(left: np.ndarray, right: np.ndarray, axis: np.ndarray):
+    """Per-octant skip links (8, M) hit and miss of the tree whose node i
+    has children ``left[i]``, ``right[i]`` (-1 at a leaf) and split axis
+    ``axis[i]``, node 0 the root: for each octant, the depth-first order
+    that visits the near child first (the right one where the octant's bit
+    of the node's axis is set)."""
+    from ..native import load_library
+
+    lib = load_library("bvh_builder")
     i32p = ctypes.POINTER(ctypes.c_int32)
+    m = left.shape[0]
+    lanes = [np.ascontiguousarray(a, np.int32) for a in (left, right, axis)]
     hit = np.zeros((8, m), np.int32)
     miss = np.zeros((8, m), np.int32)
-    nodes_box = np.ascontiguousarray(nodes_box)
-    lib.bvh_thread_links(nodes_box.ctypes.data_as(f32p), ctypes.c_int(m),
+    lib.bvh_thread_links(*(a.ctypes.data_as(i32p) for a in lanes), ctypes.c_int(m),
                          hit.ctypes.data_as(i32p), miss.ctypes.data_as(i32p))
-    return nodes_box, hit, miss
+    return hit, miss
 
 
 def build_bvh_over_triangles(tri_v, tri_n, tri_uv, tri_mat, *, device):
@@ -92,8 +91,8 @@ def build_bvh_over_triangles(tri_v, tri_n, tri_uv, tri_mat, *, device):
     built exactly as the reference builds it.  The padded leaf slots name
     reordered triangle ids, so a walk's ``tri_id`` indexes the returned
     arrays directly."""
-    nodes_box, node_first, perm, padded_ids, lib = _native_build(tri_v.min(1), tri_v.max(1))
-    nodes_box, hit, miss = _thread_links(nodes_box, lib)
+    nodes_box, node_first, perm, padded_ids, tree = _native_build(tri_v.min(1), tri_v.max(1))
+    hit, miss = thread_links(*tree)
 
     v = tri_v[perm].astype(np.float32)
     v0 = v[:, 0]

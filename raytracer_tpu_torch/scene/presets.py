@@ -41,6 +41,30 @@ def cornell_camera_kw():
     return dict(translation=(0.0, 1.0, -3.6)), dict(fov_deg=35.0)
 
 
+def sphere_grid(nx=8, ny=8, with_mesh=False, *, device):
+    """Grid of ``nx`` x ``ny`` spheres cycling through 8 BSDFs under a
+    background light (the materials-test scene).  ``with_mesh`` is accepted
+    and unused, as in the reference."""
+    b = SceneBuilder()
+    bsdfs = ["diffuse", "roughDiffuse", "metal", "roughMetal", "dielectric",
+             "roughDielectric", "plastic", "roughPlastic"]
+    for i in range(nx):
+        for j in range(ny):
+            m = b.add_material(
+                MaterialDesc(
+                    name=f"m{i}_{j}",
+                    bsdf=bsdfs[(i * ny + j) % len(bsdfs)],
+                    base_color=(0.9, 0.6 + 0.4 * j / max(ny - 1, 1), 0.4),
+                    roughness=0.05 + 0.9 * i / max(nx - 1, 1),
+                    ior=1.5,
+                    k=3.0,
+                )
+            )
+            b.add_sphere(RigidTransform(translation=(1.2 * (i - nx / 2), 1.2 * (j - ny / 2), 6.0)), 0.5, m)
+    b.add_light(LightDesc(kind=T.LIGHT_BACKGROUND, color=(0.8, 0.9, 1.0)))
+    return b.build(device)
+
+
 def random_mesh_scene(n_tris=5000, seed=0, *, device):
     """Triangle-soup mesh + env light."""
     rng = np.random.default_rng(seed)

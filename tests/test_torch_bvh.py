@@ -201,13 +201,72 @@ def test_step_cap_truncates_as_the_reference(monkeypatch):
                                                             jnp.asarray(limit))))
 
 
-def test_link_stash_limit_raises(monkeypatch):
-    monkeypatch.setattr(port_bvh, "MAX_LINKED_NODES", 100)
-    v, n, uv, mat = _random_tris(300, seed=1)
-    with pytest.raises(ValueError, match="link stash"):
-        port_bvh.build_bvh_over_triangles(v, n, uv, mat, device="cpu")
-    v, n, uv, mat = _random_tris(20, seed=1)  # 20 tris: fewer than 100 nodes
-    assert port_bvh.build_bvh_over_triangles(v, n, uv, mat, device="cpu")[1].num_nodes <= 100
+def _plain_threading(left, right, axis):
+    """The skip links of the tree as the reference's Python builder threads
+    them: per octant, a depth-first walk from node 0 that visits the near
+    child first; ``hit`` descends, ``miss`` skips the subtree."""
+    m = len(left)
+    hit, miss = np.zeros((8, m), np.int32), np.zeros((8, m), np.int32)
+    left, right, axis = left.tolist(), right.tolist(), axis.tolist()
+    for octant in range(8):
+        h, ms = hit[octant], miss[octant]
+        hl, ml = [0] * m, [0] * m
+        stack = [(0, -1)]
+        while stack:
+            node, cont = stack.pop()
+            ml[node] = cont
+            near = left[node]
+            if near < 0:
+                hl[node] = cont
+                continue
+            far = right[node]
+            if (octant >> axis[node]) & 1:
+                near, far = far, near
+            hl[node] = near
+            stack.append((far, cont))
+            stack.append((near, far))
+        h[:], ms[:] = hl, ml
+    return hit, miss
+
+
+def test_links_of_a_tree_over_a_million_nodes():
+    """A tree of 2^20 - 1 nodes, given as node arrays (a complete binary
+    tree of depth 20 under a random numbering, node 0 the root, random split
+    axes): the native threading's links are the plain threading's.  The
+    builder once handed the children over in float lanes as
+    ``axis * 1e6 + right`` and refused trees of more than 1,000,000 nodes."""
+    depth = 20
+    m = (1 << depth) - 1
+    rng = np.random.default_rng(5)
+    ids = np.concatenate([[0], 1 + rng.permutation(m - 1)]).astype(np.int32)  # heap slot -> node id
+    heap = np.arange(m)
+    inner = heap < (m - 1) // 2
+    left = np.full(m, -1, np.int32)
+    right = np.full(m, -1, np.int32)
+    left[ids[heap[inner]]] = ids[2 * heap[inner] + 1]
+    right[ids[heap[inner]]] = ids[2 * heap[inner] + 2]
+    axis = rng.integers(0, 3, m).astype(np.int32)
+    assert m > 1_000_000 and right.max() >= 1_000_000
+    hit, miss = port_bvh.thread_links(left, right, axis)
+    want_hit, want_miss = _plain_threading(left, right, axis)
+    assert np.array_equal(hit, want_hit) and np.array_equal(miss, want_miss)
+
+
+def test_build_hands_the_threading_each_node_s_children_and_axis():
+    """The native build's node arrays are a tree over every node (each node
+    but the root the child of one inner node, leaves exactly the nodes with
+    a first slot), and the links of ``build_bvh_over_triangles`` are the
+    plain threading of those arrays."""
+    v, n, uv, mat = _random_tris(3000, seed=6)
+    nodes_box, node_first, _, _, (left, right, axis) = port_bvh._native_build(v.min(1), v.max(1))
+    m = nodes_box.shape[0]
+    inner = left >= 0
+    assert np.array_equal(inner, node_first < 0) and np.array_equal(inner, right >= 0)
+    assert np.array_equal(np.sort(np.concatenate([left[inner], right[inner]])), np.arange(1, m))
+    assert set(np.unique(axis[inner]).tolist()) <= {0, 1, 2} and not nodes_box[:, 6:8].any()
+    bvh = port_bvh.build_bvh_over_triangles(v, n, uv, mat, device="cpu")[1]
+    want_hit, want_miss = _plain_threading(left, right, axis)
+    assert np.array_equal(bvh.hit_link.numpy(), want_hit) and np.array_equal(bvh.miss_link.numpy(), want_miss)
 
 
 def test_walk_wrapper_raises_on_a_device_without_a_kernel():

@@ -1,0 +1,173 @@
+"""The port's small public helpers and its ``sphere_grid`` scene against the
+JAX package's, on the CPU.
+
+Every helper of ``math/vec.py``, ``math/sampling.py``,
+``math/distribution.py::searchsorted_rows`` (the reference's
+``jax_searchsorted_rows``), ``ops/intersect.py::gather_prim`` and
+``render/film.py::error_estimate`` takes the same seeded numpy inputs
+(``tools/torch_check_helpers.py::helper_inputs``, edges included) in both
+packages, the JAX side op by op (eager), and gives bit-equal values but
+where ``TOLERANCE`` says why not:
+
+- ``searchsorted_rows``: rows of 15 entries, since the reference's search
+  is one halving short at a power of two (pinned below);
+- ``rsqrt_normalize``: ``jax.lax.rsqrt`` on the CPU is not correctly rounded
+  (on an x86 CPU: 11% of lanes an ulp off the correctly rounded root) and
+  ``torch.rsqrt`` is 1 / sqrt; within 2 ulps of 1;
+- ``refract``, ``sample_triangle_barycentric``, ``spherical_to_cartesian``:
+  torch's float32 ``sqrt`` on the CPU is an ulp off in ~0.6% of lanes where
+  XLA's is correctly rounded (``length`` takes the port's correctly rounded
+  ``sqrt_rn`` and is bit-equal); within 2 ulps of 1, and ``spherical_to_
+  cartesian`` also meets XLA's and torch's ``sin`` / ``cos``, within 4.
+
+Then ``sphere_grid``'s tables field by field against the JAX scene carried
+across by ``scene/convert.py``, and a 16^2 depth-3 MIS render of it in both
+packages at the port's render tolerance (``tests/test_torch_render.py``).
+"""
+
+import os
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests import torch_one_thread  # noqa: F401  (one torch thread for this process)
+from tests.test_torch_scene import assert_same, to_port
+from raytracer_tpu.integrators.path_tracer import RenderParams as RefRenderParams
+from raytracer_tpu.math import distribution as R_dist
+from raytracer_tpu.math import sampling as R_samp
+from raytracer_tpu.math import vec as RV
+from raytracer_tpu.math.transform import RigidTransform as RefRigidTransform
+from raytracer_tpu.ops.intersect import gather_prim as ref_gather_prim
+from raytracer_tpu.render.film import Film as RefFilm, error_estimate as ref_error_estimate
+from raytracer_tpu.render.renderer import Viewport as RefViewport, ViewportParams as RefViewportParams
+from raytracer_tpu.scene.camera import make_camera as ref_make_camera
+from raytracer_tpu.scene.presets import sphere_grid as ref_sphere_grid
+from raytracer_tpu_torch.integrators.path_tracer import RenderParams
+from raytracer_tpu_torch.math.distribution import searchsorted_rows
+from raytracer_tpu_torch.render.renderer import Viewport, ViewportParams
+from raytracer_tpu_torch.scene.presets import sphere_grid
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "tools"))
+import torch_check_helpers as tch  # noqa: E402
+
+N = 1 << 14
+ULP1 = 2.0 ** -23  # an ulp just above 1
+TOLERANCE = {"rsqrt_normalize": 2 * ULP1, "refract": 2 * ULP1, "sample_triangle_barycentric": 2 * ULP1,
+             "spherical_to_cartesian": 4 * ULP1}
+
+
+def ref_outputs(inputs, prims):
+    """The JAX package's outputs of ``tch.helper_outputs``, in its order."""
+    j = lambda k: jnp.asarray(inputs[k])
+    v = lambda k: RV.Vec3(*(jnp.asarray(inputs[k][:, c]) for c in range(3)))
+    a, b, nrm, i = v("a"), v("b"), v("nrm"), v("i")
+    kind, rot, trans, param, mat, light = ref_gather_prim(prims, j("prim_idx"))
+    n, m = inputs["passes"]
+    film = RefFilm(sum=j("film")[0], secondary_sum=j("film")[1], num_passes=jnp.int32(n),
+                   num_secondary_passes=jnp.int32(m))
+    out = {
+        "length": RV.length(a),
+        "rsqrt_normalize": RV.rsqrt_normalize(b),
+        "reflect": RV.reflect(i, nrm),
+        "refract": RV.refract(i, nrm, j("eta")),
+        "lerp": RV.lerp(a, b, j("t")),
+        "vmin": RV.vmin(a, b),
+        "vmax": RV.vmax(a, b),
+        "vabs": RV.vabs(a),
+        "min_component": RV.min_component(a),
+        "is_finite": RV.is_finite(v("odd")),
+        "cos_hemisphere_pdf": R_samp.cos_hemisphere_pdf(j("cos_theta")),
+        "sample_triangle_barycentric": R_samp.sample_triangle_barycentric(j("u1"), j("u2")),
+        "spherical_to_cartesian": R_samp.spherical_to_cartesian(j("phi"), j("cos_theta")),
+        "searchsorted_rows": R_dist.jax_searchsorted_rows(j("rows"), j("u_rows")),
+        "gather_prim": (kind, *rot.r0, *rot.r1, *rot.r2, *trans, *param, mat, light),
+        "error_estimate": ref_error_estimate(film),
+    }
+    as_np = lambda x: (np.stack([np.asarray(c) for c in x], -1) if isinstance(x, RV.Vec3)
+                       else tuple(as_np(c) for c in x) if isinstance(x, tuple) else np.asarray(x))
+    return {k: as_np(x) for k, x in out.items()}
+
+
+@pytest.fixture(scope="module")
+def both():
+    inputs = tch.helper_inputs(N, seed=3)
+    ref_scene, _ = ref_sphere_grid()
+    return tch.helper_outputs(inputs, "cpu"), ref_outputs(inputs, ref_scene.prims)
+
+
+@pytest.mark.parametrize("name", tch.HELPERS)
+def test_helper_matches_the_reference(both, name):
+    got, want = (tch._flat(x[name]) for x in both)
+    assert got.shape == want.shape
+    if got.dtype == np.float32:
+        assert want.dtype == np.float32
+        if name in TOLERANCE:
+            np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+            np.testing.assert_allclose(got, want, rtol=0, atol=TOLERANCE[name])
+        else:
+            np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    else:
+        np.testing.assert_array_equal(got, want.astype(got.dtype))
+
+
+def test_searchsorted_rows_counts_ties():
+    rows = torch.tensor([[0.0, 0.5, 0.5, 1.0, 1.0], [0.25, 0.25, 0.25, 0.25, 0.25]])
+    u = torch.tensor([0.5, 0.25])
+    got = searchsorted_rows(rows, u)
+    assert got.dtype == torch.int32 and got.tolist() == [3, 5]
+
+
+@pytest.mark.parametrize("k", [8, 16])
+def test_searchsorted_rows_where_the_reference_is_one_step_short(k):
+    """Fault of the reference, not carried over: ``jax_searchsorted_rows``
+    runs ``(k - 1).bit_length()`` halvings, one short of the k + 1 answers
+    when k is a power of two, and returns 0 where one entry is <= u.  The
+    port returns the count."""
+    rng = np.random.default_rng(k)
+    rows = np.sort(rng.random((4096, k)), 1).astype(np.float32)
+    u = rng.uniform(-0.1, 1.1, 4096).astype(np.float32)
+    count = (rows <= u[:, None]).sum(1)
+    ref = np.asarray(R_dist.jax_searchsorted_rows(jnp.asarray(rows), jnp.asarray(u)))
+    got = searchsorted_rows(torch.as_tensor(rows), torch.as_tensor(u)).numpy()
+    np.testing.assert_array_equal(got, count)
+    short = ref != count
+    assert short.any() and (count[short] == 1).all() and (ref[short] == 0).all()
+
+
+def test_spherical_to_cartesian_gradient_is_finite_at_the_poles():
+    from raytracer_tpu_torch.math.sampling import spherical_to_cartesian
+
+    cos_theta = torch.tensor([1.0, -1.0, 0.5], requires_grad=True)
+    d = spherical_to_cartesian(torch.tensor([0.3, 1.0, 2.0]), cos_theta)
+    (g,) = torch.autograd.grad(sum(c.sum() for c in d), cos_theta)
+    assert torch.isfinite(g).all()
+    assert g[:2].tolist() == [1.0, 1.0]  # only the z component moves at a pole
+
+
+def test_sphere_grid_bit_equal():
+    ref_scene, ref_meta = ref_sphere_grid()
+    scene, meta = sphere_grid(device="cpu")
+    assert scene.prims.count == 64 and scene.materials.bsdf.shape[0] == 64
+    assert_same(scene, to_port(ref_scene))
+    assert meta == to_port(ref_meta)
+    assert_same(sphere_grid(4, 3, with_mesh=True, device="cpu")[0], to_port(ref_sphere_grid(4, 3, with_mesh=True)[0]))
+
+
+def test_sphere_grid_render_matches_reference():
+    t_kw, c_kw = tch.SPHERE_GRID_CAMERA
+    rv = RefViewport(*ref_sphere_grid(), ref_make_camera(RefRigidTransform(**t_kw), **c_kw),
+                     RefViewportParams(16, 16, seed=0), RefRenderParams(max_depth=3, mis=True))
+    pv = Viewport(*tch.sphere_grid_scene("cpu"), ViewportParams(16, 16, seed=0), RenderParams(max_depth=3, mis=True),
+                  device="cpu")
+    a = rv.render(1).radiance()
+    b = pv.render(1).radiance()
+    assert np.isfinite(b).all() and b.mean() > 0
+    rp, pp = rv.progress(), pv.progress()
+    for key in ("total_rays", "total_shadow_rays"):
+        assert abs(pp[key] - rp[key]) <= 1e-3 * rp[key], (key, pp[key], rp[key])
+    close = np.isclose(b, a, atol=1e-4, rtol=1e-3).all(-1)
+    assert close.mean() >= 0.995, close.mean()
+    assert abs(b.mean() - a.mean()) <= 1e-3 * abs(a.mean())

@@ -36,7 +36,7 @@ def test_port_has_the_slice_modules():
               "render.postprocess", "ops.wave_traverse", "parallel.mesh",
               "integrators.light_tracer", "integrators.vcm", "integrators.debug", "ops.hashgrid", "cli",
               "__main__", "io.png", "utils", "utils.logger", "utils.profiler", "math.packed",
-              "render.adaptive", "render.checkpoint", "render.path_debug"):
+              "render.adaptive", "render.checkpoint", "render.path_debug", "entry", "parallel.launch"):
         assert f"raytracer_tpu_torch.{m}" in mods, m
 
 
@@ -73,6 +73,86 @@ def test_gradient_tool_and_its_modules_leave_jax_out():
     assert res.returncode == 0 and "clean" in res.stdout, res.stderr[-2000:]
 
 
+NEW_TOOLS = ("torch_traversal_bench", "torch_check_wave2", "torch_check_pallas", "torch_microbench",
+             "torch_probe_render", "torch_scaling_bench", "torch_check_helpers")
+
+
+def test_entry_and_the_tools_leave_jax_out():
+    """``raytracer_tpu_torch/entry.py`` and the counterparts of the
+    reference's traversal, oracle, micro-bench, probe and scaling tools
+    import no jax and nothing of the JAX package."""
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, 'tools')\n"
+        f"for m in {NEW_TOOLS!r}:\n"
+        "    __import__(m)\n"
+        "import raytracer_tpu_torch.entry\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'raytracer_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and "clean" in res.stdout, res.stderr[-2000:]
+
+
+# Public top-level names of the JAX package without a counterpart of the
+# same name in the port's module of the same path, by decision:
+NOT_PORTED = {
+    # a one-hot matmul for the TPU's matrix unit; plain indexing returns the
+    # same table values (ROADMAP "Decisions")
+    "ops/smallgather.py": None,
+    # the pure-Python tree builder: the port raises without g++, since a
+    # slower builder could order ties differently (ROADMAP queue 3)
+    ("scene/bvh.py", "build_sah_tree"): None,
+    # a typing alias of floats and jnp arrays
+    ("math/vec.py", "Scalar"): None,
+    # renamed: the port has no jax_ names
+    ("math/distribution.py", "jax_searchsorted_rows"): "searchsorted_rows",
+}
+
+
+def _public_names(path, imported=False):
+    """The module's public top-level definitions and assignments (and, with
+    ``imported``, the names it imports)."""
+    import ast
+
+    names = set()
+    for node in ast.parse(open(path).read()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets if isinstance(t, ast.Name))
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            names.add(node.target.id)
+        elif imported and isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update((a.asname or a.name).split(".")[0] for a in node.names)
+    return {n for n in names if not n.startswith("_")}
+
+
+def test_every_public_name_of_the_reference_has_a_counterpart():
+    ref = os.path.join(ROOT, "raytracer_tpu")
+    missing = []
+    for dirpath, _, files in os.walk(ref):
+        for f in sorted(files):
+            if not f.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(dirpath, f), ref)
+            port = os.path.join(PKG, rel)
+            if not os.path.exists(port):
+                if rel not in NOT_PORTED:
+                    missing.append(rel)
+                continue
+            have = _public_names(port, imported=True)
+            for name in sorted(_public_names(os.path.join(dirpath, f)) - have):
+                key = (rel, name)
+                if key not in NOT_PORTED:
+                    missing.append(f"{rel}::{name}")
+                elif NOT_PORTED[key] is not None:
+                    assert NOT_PORTED[key] in have, key
+    assert not missing, missing
+
+
 _FOREIGN_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|raytracer_tpu)(?![_\w])")
 
 
@@ -104,13 +184,16 @@ def test_no_port_source_mentions_a_jax_import():
 
 def test_port_keeps_no_binary_and_equal_copies():
     """The port's copies of the shared host files: the blue-noise table is
-    byte-equal, the OBJ loader and the BVH builder differ from the JAX
-    package's only in comments, and no built library sits in the package."""
+    byte-equal, the OBJ loader differs from the JAX package's only in
+    comments, the BVH builder's tree build (all before its C interface,
+    which hands the children to the link threading as int32 arrays, not in
+    float lanes) likewise, and no built library sits in the package."""
     ref = os.path.join(ROOT, "raytracer_tpu")
     with open(os.path.join(PKG, "sampler", "bluenoise128.npy"), "rb") as a, \
             open(os.path.join(ref, "sampler", "bluenoise128.npy"), "rb") as b:
         assert a.read() == b.read()
-    code = lambda path, mark: [ln for ln in open(path).read().splitlines() if not ln.lstrip().startswith(mark)]
+    code = lambda path, mark: [ln for ln in open(path).read().split('extern "C"')[0].splitlines()
+                               if not ln.lstrip().startswith(mark)]
     assert code(os.path.join(PKG, "native", "bvh_builder.cpp"), "//") == \
         code(os.path.join(ref, "native", "bvh_builder.cpp"), "//")
     with open(os.path.join(PKG, "io", "obj.py")) as a, open(os.path.join(ref, "io", "obj.py")) as b:

@@ -33,7 +33,6 @@ group of one for (a)); with no argument and no card it exits.
 from __future__ import annotations
 
 import os
-import subprocess
 import sys
 import time
 
@@ -52,6 +51,7 @@ from raytracer_tpu_torch.integrators.vcm import VcmParams, render_pass_vcm  # no
 from raytracer_tpu_torch.io.scene_loader import load_scene  # noqa: E402
 from raytracer_tpu_torch.ops import wave2_traverse as w2  # noqa: E402
 from raytracer_tpu_torch.parallel import mesh as pm  # noqa: E402
+from raytracer_tpu_torch.parallel.launch import run_ranks  # noqa: E402
 from raytracer_tpu_torch.render.film import make_film  # noqa: E402
 from raytracer_tpu_torch.render.renderer import Viewport, ViewportParams  # noqa: E402
 from raytracer_tpu_torch.sampler.sampler import halton_frame_vector  # noqa: E402
@@ -159,27 +159,10 @@ def two_ranks(mesh_json, one, dev, log, work_dir, size=512, train_size=64):
     rendezvous = os.path.join(work_dir, f"rendezvous-two-{os.getpid()}")
     if os.path.exists(rendezvous):
         os.remove(rendezvous)
-    env = dict(os.environ, PYTHONPATH=ROOT)
     t0 = time.perf_counter()
-    procs, logs = [], []
-    for rank in range(2):
-        logs.append(open(os.path.join(work_dir, f"rank{rank}.log"), "w"))
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "worker", str(rank), "2", rendezvous, mesh_json, work_dir,
-             str(dev), str(size), str(train_size)], cwd=ROOT, env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
-    codes = []
-    for rank, p in enumerate(procs):
-        try:
-            codes.append(p.wait(timeout=max(1.0, CHILD_TIMEOUT_S - (time.perf_counter() - t0))))
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-                q.wait()
-            codes.append(None)
-    for f in logs:
-        f.close()
-    for rank, code in enumerate(codes):
-        text = open(os.path.join(work_dir, f"rank{rank}.log")).read()
+    done = run_ranks(lambda rank: [os.path.abspath(__file__), "worker", str(rank), "2", rendezvous, mesh_json,
+                                   work_dir, str(dev), str(size), str(train_size)], 2, work_dir, CHILD_TIMEOUT_S)
+    for rank, (code, text) in enumerate(done):
         log(f"gloo rank {rank}: exit {code}; its log ends:\n{text[-1500:]}")
         check(code == 0 and "RANK_OK" in text, f"gloo rank {rank} ran to its end within {CHILD_TIMEOUT_S} s", log)
     log(f"two gloo ranks on one card: {time.perf_counter() - t0:.1f} s from spawn to both exits")

@@ -680,11 +680,12 @@ def check_bvh_walk(bvh, o, d, any_tl, dev, log=print, label="window", reps=20):
     return out
 
 
-def bvh_against_wave2(bvh, cs, o, d, any_tl, dev, log=print, label="window"):
-    """The skip-link walk against the wave2 engine on the same rays and the
-    same triangles: tri ids equal except on exact ties (both t bit-equal),
-    t within 1e-6 relative where both hit, occlusion (rays of length
-    ``any_tl``) equal; or exit.  Returns the counts."""
+def walk_against_wave2(bvh, cs, o, d, any_tl, dev):
+    """The skip-link walk and the wave2 engine on the same rays and the same
+    triangles.  Returns (counts, walk, wave2's (t, tri), occlusion equal):
+    ``counts`` holds the rays, hits, tri ids apart, exact ties among them
+    (both t bit-equal), the largest relative t difference where both hit,
+    and the occlusion of rays ``any_tl`` long."""
     from raytracer_tpu_torch.ops import bvh_traverse as bt
 
     ro, rd = vec(o, dev), vec(d, dev)
@@ -700,10 +701,18 @@ def bvh_against_wave2(bvh, cs, o, d, any_tl, dev, log=print, label="window"):
     counts = {"rays": n, "hits": int((walk.tri >= 0).sum()), "tri_differ": int(differ.sum()),
               "exact_ties": int(ties.sum()), "max_rel_t": rel, "occluded": int(occ.sum()),
               "occluded_differ": int((occ != w_occ).sum())}
+    return counts, walk, (w_t, w_tri), torch.equal(differ, ties)
+
+
+def bvh_against_wave2(bvh, cs, o, d, any_tl, dev, log=print, label="window"):
+    """``walk_against_wave2``, held: tri ids equal except on exact ties, t
+    within 1e-6 relative where both hit, occlusion equal; or exit.  Returns
+    the counts."""
+    counts, _, _, ties_only = walk_against_wave2(bvh, cs, o, d, any_tl, dev)
     log(f"bvh vs wave2 [{label}]: {counts}")
-    check(torch.equal(differ, ties), f"bvh and wave2 tri ids equal but on exact ties ({label})", log)
-    check(rel <= 1e-6, f"bvh and wave2 t within 1e-6 relative ({label})", log)
-    check(torch.equal(occ, w_occ), f"bvh and wave2 occlusion equal ({label})", log)
+    check(ties_only, f"bvh and wave2 tri ids equal but on exact ties ({label})", log)
+    check(counts["max_rel_t"] <= 1e-6, f"bvh and wave2 t within 1e-6 relative ({label})", log)
+    check(counts["occluded_differ"] == 0, f"bvh and wave2 occlusion equal ({label})", log)
     return counts
 
 
