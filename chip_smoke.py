@@ -101,7 +101,7 @@ Phases (any failure exits non-zero before the last line):
     shell's cluster set and on each geometry's, the latter with the camera
     rays moved into the object space of one instance of it, and phase 14's
     bvh_walk checks on the shell's BVH; 512^2, depth 6, MIS under wave2 (1 warm-up + 1
-    timed pass), overflow 0, one profiled pass; the mean radiance within 1%
+    timed pass; no profiled pass, for the time limit), overflow 0; the mean radiance within 1%
     of the baked hall's at the same seed and passes; then one timed pass
     under bvh, where the shell launches bvh_walk and the instances wave2_mt.
 16. reverse-mode gradients (tools/torch_check_gradients.py): (a) the
@@ -150,7 +150,10 @@ Phases (any failure exits non-zero before the last line):
     (torch_check_integrators::debug_and_counters): render_debug in all 14
     modes on the 512^2 camera rays (finite; constant only where the scene's
     own material column is), TriangleID on the card equal to the CPU port's
-    on a 64^2 crop of the same rays (the hall loaded on the CPU too), one
+    on a 64^2 crop of the same rays, both under bvh (the hall
+    loaded on the CPU too; wave2's plain twin took minutes there), and
+    the card's wave2 crop equal to wave2 with the kernel's plain twin on
+    the card, one
     MIS pass with count_traversal (total_box_tests, total_tri_tests), and
     the instanced hall's TraversalCost beside the baked hall's on the same
     rays (logged: the two hold their triangles in different cluster sets).
@@ -175,9 +178,9 @@ Phases (any failure exits non-zero before the last line):
     the twin on the shell's and each geometry's cluster set, the camera
     rays at seeded shutter times and moved into the object space of a
     moving knot at each ray's own time (instance_windows with ``time``);
-    512^2, depth 6, MIS, wave2, strength 1, spectral (1 warm-up + 2 timed
-    passes): overflow 0, wave2_mt launches, finite non-zero radiance, one
-    profiled pass; then one pass under bvh (bvh_walk for the shell,
+    512^2, depth 6, MIS, wave2, strength 1, spectral (1 warm-up + 1 timed
+    pass, no profiled one, for the time limit): overflow 0,
+    wave2_mt launches, finite non-zero radiance; then one pass under bvh (bvh_walk for the shell,
     wave2_mt for the instances) with its mean radiance within 1e-3 of the
     wave2 render's first pass, and at 128^2, strength 0, spectral off, the
     radiance bit for bit that of the hall held still.
@@ -236,6 +239,30 @@ Phases (any failure exits non-zero before the last line):
     process's render_pass; (g) tools/torch_scaling_bench.py at 1 and 2
     ranks, every band bit-equal to the one-process render's rows; (h)
     tools/torch_probe_render.py, one timed pass of mesh200k at 512^2.
+25. wave2's settings (tools/torch_check_wave2_config.py), none of which is
+    in the environment at the start (the script fails otherwise): (a)
+    wave2_mt against its twin, bit for bit and timed, on the chunks of a
+    front-to-back (RT_WAVE2_FTB) first round at kc 4 and of the
+    continuation round after it, closest-hit and any-hit, on a mesh200k and
+    a hall window; (b) the engine under front to back, kernel path against
+    twin path (65,536 rays of each scene), then front to back at kc 4 and 6
+    against id order at kc 16 on 2^20 coherent and incoherent rays of
+    mesh200k and of the hall, closest-hit and any-hit: t bit-equal on every
+    ray neither mode flags, tri ids equal but at ties in t (counted),
+    occlusion equal; rounds, continuation iterations, pair slots, host
+    syncs and overflow of each; (c) 512^2 MIS depth-6 renders of mesh200k
+    and the hall under front to back (1 warm-up + 2 timed passes) beside the
+    defaults in the same call, and of mesh200k under RT_WAVE2_SPATIAL_KEY=0
+    (1 + 1): ms a pass, Mray/s, wave2_mt launches, overflow, finite
+    radiance, radiance against the default render at the same seed (equal
+    pixels, largest difference; bit-equal, and under front to back equal on
+    at least 99% of pixels, since a tie in t may change a hit); (d) a child process with
+    RT_WAVE2_CHUNK=256 (2 rows a chunk): wave2_mt against its twin on a
+    mesh200k and a hall window, the engine's hits bit-equal to this
+    process's at CHUNK 1,024, a 512^2 mesh200k render (1 + 1); (e) one
+    mesh200k pass under each diagnostic switch, RT_WAVE2_SKIP_KERNEL (no
+    kernel launched: the sort-join's bill alone) and RT_SKIP_TRI_FRAME,
+    each set around its pass alone.
 
 Every line goes to raytracer_tpu_torch/_build/chip_smoke.log too (truncated
 at the start of a run), since the tail of the output may be cut.  The last
@@ -275,13 +302,14 @@ import torch_check_parallel as tpar  # noqa: E402
 import torch_check_textures as tctex  # noqa: E402
 import torch_check_traverse as tct  # noqa: E402
 import torch_check_wave2 as tcw2  # noqa: E402
+import torch_check_wave2_config as tcw2c  # noqa: E402
 import torch_gen_interior  # noqa: E402
 import torch_microbench as tmb  # noqa: E402
 import torch_probe_launch as tpl  # noqa: E402
 import torch_probe_render as tpr  # noqa: E402
 import torch_scaling_bench as tsb  # noqa: E402
 import torch_traversal_bench as ttb  # noqa: E402
-from torch_check_traverse import bound_ms, coherent_rays, incoherent_rays, vec  # noqa: E402
+from torch_check_traverse import bound_ms, coherent_rays, incoherent_rays, twin_engine, vec  # noqa: E402
 
 from raytracer_tpu_torch import entry as port_entry  # noqa: E402
 from raytracer_tpu_torch.integrators.path_tracer import RenderParams  # noqa: E402
@@ -323,18 +351,6 @@ def log(msg: str):
 def launch_counts() -> dict:
     return {"wave2_mt": w2.mt_chunks.launches, "phase2_grid": pt.phase2_grid.launches,
             "phase2_stream": pt.phase2_stream.launches, "bvh_walk": bt.bvh_walk.launches}
-
-
-class twin_engine:
-    """Within the block, the wave2 engine calls the plain twin, not the kernel."""
-
-    def __enter__(self):
-        self.saved = w2.mt_chunks
-        w2.mt_chunks = w2.mt_chunks_reference
-        return self
-
-    def __exit__(self, *exc):
-        w2.mt_chunks = self.saved
 
 
 def check(cond, msg):
@@ -644,9 +660,8 @@ def instanced_hall(baked, dev, smi):
     launches = w2.mt_chunks.launches
     check(launches > 0 and overflow == 0, "interior800k_inst_mis: wave2_mt launched, overflow 0")
     check(bool(np.isfinite(radiance).all()) and radiance.mean() > 0, "interior800k_inst_mis: radiance finite, non-zero")
-    device_ms = profiled(lambda: vp.render(1), "interior800k_inst_mis [wave2] pass", named=("wave2_mt",))
-    log(f"interior800k_inst_mis [wave2]: wave2_mt launches {launches} in 2 passes; device time "
-        f"{device_ms:.1f} ms of an unprofiled pass's {dt * 1e3:.1f} ms: idle {1 - device_ms / (dt * 1e3):.3f}")
+    # no profiled pass: it takes ~56 s of the script's time limit on an H100 host (its last reading is in PERF.md)
+    log(f"interior800k_inst_mis [wave2]: wave2_mt launches {launches} in 2 passes, {dt * 1e3:.1f} ms a pass")
     ref = Viewport(baked.scene, baked.meta, baked.cam, ViewportParams(512, 512, seed=0),
                    RenderParams(max_depth=6, mis=True), device=dev).render(2).radiance()
     rel = abs(float(radiance.mean()) - float(ref.mean())) / float(ref.mean())
@@ -782,7 +797,7 @@ def fx_phase(dev, smi):
     on the card against the CPU port, and the spectral box's brightness
     against RGB; (b) interior800k_fx_mis, the instanced hall with every
     effect at 512^2, depth 6, MIS, wave2, strength 1, spectral (1 warm-up +
-    2 timed passes, one profiled); before it, wave2_mt and the engine
+    1 timed pass); before it, wave2_mt and the engine
     against the twin on the shell's and each geometry's cluster set, the
     rays at their shutter times (a moving knot's object space); after it,
     one pass under bvh against the warm-up pass, and strength 0 against the
@@ -820,13 +835,13 @@ def fx_phase(dev, smi):
                   RenderParams(max_depth=6, mis=True, spectral=True), device=dev)
     w2.mt_chunks.launches = 0
     first = []
-    dt, rays, shadow, overflow, radiance = timed_render(vp, 2, smi, f"{label} [wave2]", first=first)
+    dt, rays, shadow, overflow, radiance = timed_render(vp, 1, smi, f"{label} [wave2]", first=first)
     launches = w2.mt_chunks.launches
     check(launches > 0 and overflow == 0, f"{label}: wave2_mt launched, overflow 0")
     check(bool(np.isfinite(radiance).all()) and radiance.mean() > 0, f"{label}: radiance finite, non-zero")
-    device_ms = profiled(lambda: vp.render(1), f"{label} [wave2] pass", named=("wave2_mt",))
-    log(f"{label} [wave2]: wave2_mt launches {launches} in 3 passes; device time {device_ms:.1f} ms of an "
-        f"unprofiled pass's {dt / 2 * 1e3:.1f} ms: idle {1 - device_ms / (dt / 2 * 1e3):.3f}")
+    # one timed pass and no profiled one: on an H100 host a pass takes ~16 s, a profiled one ~76 s of the
+    # script's time limit (its last reading is in PERF.md)
+    log(f"{label} [wave2]: wave2_mt launches {launches} in 2 passes, {dt * 1e3:.1f} ms a pass")
 
     traverse.set_traversal_mode("bvh")
     bt.bvh_walk.launches = w2.mt_chunks.launches = 0
@@ -1146,17 +1161,41 @@ def tools_phase(mesh, rows, dev, smi):
     log(f"phase 24 (tools and entry points) wall time {time.perf_counter() - t24:.1f} s")
 
 
+def wave2_config_phase(mesh, mesh_json, hall, mt, dev):
+    """Phase 25 (tools/torch_check_wave2_config.py) on mesh200k (``mesh``,
+    its file ``mesh_json``) and the hall (phase 12's viewport ``hall``):
+    adds the front-to-back, CHUNK 256 and SPATIAL_KEY 0 renders and their
+    windows to wave2_mt's row ``mt``."""
+    t25 = time.perf_counter()
+    out = tcw2c.run(mesh, mesh_json, (hall.scene, hall.meta, hall.cam), dev, log,
+                    work_dir=os.path.join(ROOT, "raytracer_tpu_torch", "_build", "phase25"))
+    w, n = out["windows"], out["launches"]
+    mt["by_path"]["mesh200k_mis ftb kc 4 (phase 25)"] = {"launches": n["mesh200k ftb4"], "windows": w["mesh200k"]}
+    mt["by_path"]["interior800k_mis ftb kc 4 (phase 25)"] = {"launches": n["interior800k ftb4"],
+                                                            "windows": w["interior800k"]}
+    mt["by_path"]["mesh200k_mis CHUNK 256, 2 rows a chunk (phase 25, child process)"] = {
+        "launches": n["mesh200k chunk 256"], "windows": w["mesh200k CHUNK 256"]}
+    mt["by_path"]["mesh200k_mis SPATIAL_KEY 0 (phase 25)"] = {
+        "launches": n["mesh200k spatial_key 0"], "windows_of": "mesh200k_mis",
+        "windows": mt["by_path"]["mesh200k_mis"]["windows"]}
+    RENDERS.extend(out["summary"])
+    log(f"phase 25 (wave2 settings) wall time {time.perf_counter() - t25:.1f} s")
+
+
 def log_bvh_builds():
     """From here on, every BVH a scene build makes (scene/bvh.py's
     build_bvh_over_triangles, which scene/build.py looks up at each call) is
-    logged with its own wall time and the device memory it adds."""
+    logged with its own wall time and the device memory it adds, and must
+    come from the native builder (not the pure-Python fallback)."""
     build = bvh_module.build_bvh_over_triangles
 
     def timed(tri_v, *args, **kw):
         torch.cuda.synchronize()
         before, t0 = torch.cuda.memory_allocated(), time.perf_counter()
+        python_trees = bvh_module.BUILDER_COUNTS["python"]
         out = build(tri_v, *args, **kw)
         torch.cuda.synchronize()
+        check(bvh_module.BUILDER_COUNTS["python"] == python_trees, "the BVH came from the native builder")
         log(f"bvh build: {tri_v.shape[0]} tris -> {out[1].num_nodes} nodes on {kw.get('device')} in "
             f"{time.perf_counter() - t0:.3f} s; device memory {before / 2**20:.1f} -> "
             f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB (+{(torch.cuda.memory_allocated() - before) / 2**20:.1f}"
@@ -1189,6 +1228,7 @@ def run():
     log(f"device: {name}")
     log(f"nvidia-smi: {smi}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    tcw2c.check_clean_environment(log)
 
     # --- 2 + 6. build all five libraries, one nvcc each, together -----------
     t0 = time.perf_counter()
@@ -1371,6 +1411,13 @@ def run():
 
     # --- 24. the tools and the entry points ---------------------------------------------
     tools_phase((mscene, mmeta, mcam), rows, dev, smi)
+
+    # --- 25. wave2's settings: front to back, CHUNK 256, SPATIAL_KEY 0, the ablations ---
+    wave2_config_phase((mscene, mmeta, mcam), bench_mesh.ensure_scene(200_000), hall, mt, dev)
+    mt["max_abs_err"] = max(w["max_abs_err"] for path in mt["by_path"].values()
+                            for w in path.get("windows", {}).values())
+    check(bvh_module.BUILDER_COUNTS["python"] == 0 and bvh_module.BUILDER_COUNTS["native"] > 0,
+          f"every BVH of the run came from the native builder ({bvh_module.BUILDER_COUNTS})")
 
     check("PIL" not in sys.modules, "no phase imported PIL")
     for mod in ("jax", "raytracer_tpu"):

@@ -26,8 +26,9 @@
 // slowest row.
 //
 // What the design does about it:
-//   - One thread block of 128 threads per ROW, one pair per thread: 8 x b2
-//     small blocks that the card's block scheduler hands out as SMs fall
+//   - One thread block of 128 threads per ROW, one pair per thread: rows x b2
+//     small blocks (rows = CHUNK / 128, 8 at the default CHUNK of 1,024,
+//     an argument of the launch) that the card's block scheduler hands out as SMs fall
 //     free, so no warp waits on another row, and a row's 128 pairs advance
 //     on four warps at once, which keeps the slowest row short.  (One warp
 //     per row with four pairs a thread reads each triangle once for four
@@ -63,7 +64,6 @@
 
 namespace {
 
-constexpr int kRows = 8;        // rows per 1024-pair chunk
 constexpr int kLanes = 128;     // pairs per row == threads per block
 constexpr int kMinBlocks = 10;  // blocks per SM the register budget allows for (48 registers)
 constexpr int kSubs = 8;        // sub-clusters per super-cluster
@@ -107,10 +107,10 @@ __global__ void __launch_bounds__(kLanes, kMinBlocks) wave2_mt_kernel(
     const float* __restrict__ dz, const float* __restrict__ tl,
     float* __restrict__ t_out, int32_t* __restrict__ tri_out,
     float* __restrict__ u_out, float* __restrict__ v_out,
-    int32_t* __restrict__ done_out, int cs, int k) {
+    int32_t* __restrict__ done_out, int rows, int cs, int k) {
   extern __shared__ float4 ring[];  // two slots of one sub's K triangle rows, 4 pieces each
   __shared__ unsigned row_open;
-  const int c = block_cluster[blockIdx.x / kRows];  // uniform over the block
+  const int c = block_cluster[blockIdx.x / rows];  // uniform over the block
   const size_t p = static_cast<size_t>(blockIdx.x) * kLanes + threadIdx.x;  // this thread's pair
 
   const float tls = tl[p];
@@ -231,26 +231,27 @@ __global__ void __launch_bounds__(kLanes, kMinBlocks) wave2_mt_kernel(
 
 }  // namespace
 
-// Launches the kernel over b2 chunks on `stream`; returns the CUDA error of
-// the launch (0 = none).  Pair arrays and outputs are (b2, 8, 128)
-// contiguous; super_geom (cs, 8k, 16) and super_sbox (cs, 8, 8) are f32,
+// Launches the kernel over b2 chunks of `rows` rows of 128 pairs on
+// `stream`, one block a row; returns the CUDA error of the launch (0 =
+// none).  Pair arrays and outputs are (b2, rows, 128) contiguous; super_geom (cs, 8k, 16) and super_sbox (cs, 8, 8) are f32,
 // contiguous and 16-byte aligned; block_cluster is (b2,) int32.
 extern "C" int wave2_mt_launch(const void* block_cluster, const void* super_geom,
                                const void* super_sbox, const void* ox, const void* oy,
                                const void* oz, const void* dx, const void* dy,
                                const void* dz, const void* tl, void* t_out, void* tri_out,
-                               void* u_out, void* v_out, void* done_out, int b2, int cs,
-                               int k, int any_hit, void* stream) {
+                               void* u_out, void* v_out, void* done_out, int b2, int rows,
+                               int cs, int k, int any_hit, void* stream) {
   if (b2 <= 0) return 0;
+  if (rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const size_t shmem = 2 * static_cast<size_t>(k) * kGeomVecs * sizeof(float4);  // k <= 128: 16 KiB at most
   auto kernel = any_hit ? wave2_mt_kernel<true> : wave2_mt_kernel<false>;
-  kernel<<<b2 * kRows, kLanes, shmem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<b2 * rows, kLanes, shmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(block_cluster), static_cast<const float*>(super_geom),
       static_cast<const float*>(super_sbox), static_cast<const float*>(ox),
       static_cast<const float*>(oy), static_cast<const float*>(oz),
       static_cast<const float*>(dx), static_cast<const float*>(dy),
       static_cast<const float*>(dz), static_cast<const float*>(tl),
       static_cast<float*>(t_out), static_cast<int32_t*>(tri_out), static_cast<float*>(u_out),
-      static_cast<float*>(v_out), static_cast<int32_t*>(done_out), cs, k);
+      static_cast<float*>(v_out), static_cast<int32_t*>(done_out), rows, cs, k);
   return static_cast<int>(cudaGetLastError());
 }

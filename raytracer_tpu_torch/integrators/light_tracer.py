@@ -21,7 +21,7 @@ from typing import NamedTuple
 import torch
 
 from ..math.sampling import local_to_world, world_to_local
-from ..math.vec import Vec3, dot, max_component, where as vwhere
+from ..math.vec import Vec3, dot, max_component, sqrt_rn, where as vwhere
 from ..ops import bsdf as bsdf_ops
 from ..ops.intersect import BIG
 from ..ops.lights import emit, gather_light
@@ -96,7 +96,7 @@ def trace_light_wavefront(scene: SceneData, meta: SceneMeta, cam: Camera, stream
         # camera connection
         to_cam = cam.origin - frame.position
         d2 = dot(to_cam, to_cam)
-        dist = torch.sqrt(torch.clamp_min(d2, 1e-12))
+        dist = sqrt_rn(torch.clamp_min(d2, 1e-12))
         dir_to_cam = to_cam * (1.0 / dist)
         wi_local = world_to_local(dir_to_cam, frame.tangent, frame.bitangent, frame.normal)
         f_cam, _pdf = bsdf_ops.evaluate(mp, wo_local, wi_local)

@@ -44,7 +44,7 @@ import torch
 
 from ..math import sampling
 from ..math.sampling import local_to_world, world_to_local
-from ..math.vec import Vec3, dot, max_component, where as vwhere
+from ..math.vec import Vec3, dot, max_component, sqrt_rn, where as vwhere
 from ..ops import bsdf as bsdf_ops
 from ..ops.bsdf import MatParams
 from ..ops.hashgrid import build_hash_grid, gather_candidates
@@ -236,7 +236,7 @@ def _trace_light_phase(scene: SceneData, meta: SceneMeta, cam: Camera, stream: S
         # camera splat
         to_cam = cam.origin - frame.position
         d2 = dot(to_cam, to_cam)
-        dist = torch.sqrt(torch.clamp_min(d2, 1e-12))
+        dist = sqrt_rn(torch.clamp_min(d2, 1e-12))
         dir_to_cam = to_cam * (1.0 / dist)
         wo_local = world_to_local(wo_world, frame.tangent, frame.bitangent, frame.normal)
         wi_local = world_to_local(dir_to_cam, frame.tangent, frame.bitangent, frame.normal)
@@ -282,7 +282,7 @@ def _connect_vertices(scene, vertices: _Vertex, frame, wo_local, mp, d_vc, d_vcm
     length_ok = lv.path_length + c_len + 1 <= vcm.max_path_length
     to_lv = lv.position - c_pos
     d2v = dot(to_lv, to_lv)
-    distv = torch.sqrt(torch.clamp_min(d2v, 1e-12))
+    distv = sqrt_rn(torch.clamp_min(d2v, 1e-12))
     ldir = to_lv * (1.0 / distv)
     cos_cam_v = dot(c_nrm, ldir)
     cos_light_v = dot(lv.normal, -ldir)

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from .vec import sqrt_rn
+
 
 def fresnel_dielectric(n_dot_v: torch.Tensor, eta) -> torch.Tensor:
     """Dielectric Fresnel reflectance, bug-compatible with the C++ renderer.
@@ -19,7 +21,7 @@ def fresnel_dielectric(n_dot_v: torch.Tensor, eta) -> torch.Tensor:
     c = torch.abs(n_dot_v)
     g2 = 1.0 - eta_eff * eta_eff * (1.0 - c * c)
     tir = g2 <= 0.0
-    g = torch.sqrt(torch.clamp_min(g2, 1e-12))
+    g = sqrt_rn(torch.clamp_min(g2, 1e-12))
     a = (g - c) / torch.clamp_min(g + c, 1e-20)
     b = (c * (g + c) - 1.0) / (c * (g - c) + 1.0)
     f = 0.5 * a * a * (1.0 + b * b)

@@ -8,7 +8,7 @@ import math
 
 import torch
 
-from .vec import Vec3
+from .vec import Vec3, sqrt_rn
 
 INV_PI = 1.0 / math.pi
 TWO_PI = 2.0 * math.pi
@@ -30,7 +30,7 @@ def ggx_pdf(alpha_sq, n_dot_h):
 def ggx_g1(alpha_sq, n_dot_x):
     """Smith G1 in the stable form ``2c / (c + sqrt(a² + (1−a²)c²))``."""
     c = torch.abs(n_dot_x)
-    return 2.0 * c / torch.clamp_min(c + torch.sqrt(alpha_sq + (1.0 - alpha_sq) * c * c), 1e-20)
+    return 2.0 * c / torch.clamp_min(c + sqrt_rn(alpha_sq + (1.0 - alpha_sq) * c * c), 1e-20)
 
 
 def ggx_g(alpha_sq, n_dot_v, n_dot_l):
@@ -44,7 +44,7 @@ def ggx_sample(alpha_sq, u1, u2) -> Vec3:
     denom = torch.clamp_min((1.0 - u1) + alpha_sq * u1, 1e-20)
     cos_theta_sq = (1.0 - u1) / denom
     sin_theta_sq = alpha_sq * u1 / denom
-    cos_theta = torch.sqrt(torch.clamp_min(cos_theta_sq, 1e-12))
-    sin_theta = torch.sqrt(torch.clamp_min(sin_theta_sq, 1e-12))
+    cos_theta = sqrt_rn(torch.clamp_min(cos_theta_sq, 1e-12))
+    sin_theta = sqrt_rn(torch.clamp_min(sin_theta_sq, 1e-12))
     phi = TWO_PI * u2
     return Vec3(sin_theta * torch.sin(phi), sin_theta * torch.cos(phi), cos_theta)

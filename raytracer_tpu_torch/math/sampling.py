@@ -8,7 +8,7 @@ import math
 
 import torch
 
-from .vec import Vec3, cross, dot
+from .vec import Vec3, cross, dot, sqrt_rn
 
 PI = math.pi
 INV_PI = 1.0 / math.pi
@@ -46,7 +46,7 @@ def pdf_area_to_solid_angle(pdf_a, distance, cos_there):
 def sample_circle(u1, u2):
     """Uniform point on the unit disc."""
     theta = TWO_PI * u1
-    r = torch.sqrt(u2)
+    r = sqrt_rn(u2)
     return r * torch.sin(theta), r * torch.cos(theta)
 
 
@@ -70,7 +70,7 @@ def sample_regular_polygon(n_blades: int, u1, u2, u3):
     sector = torch.floor(u3 * n)
     a0 = TWO_PI * sector / n
     a1 = TWO_PI * (sector + 1.0) / n
-    t = torch.sqrt(u1)
+    t = sqrt_rn(u1)
     b0, b1 = 1.0 - t, u2 * t
     return b0 * torch.cos(a0) + b1 * torch.cos(a1), b0 * torch.sin(a0) + b1 * torch.sin(a1)
 
@@ -81,14 +81,14 @@ def sample_square(u1, u2):
 
 def sample_triangle_barycentric(u1, u2):
     """(u, v) barycentric coordinates, uniform over the triangle."""
-    t = torch.sqrt(u1)
+    t = sqrt_rn(u1)
     return 1.0 - t, u2 * t
 
 
 def sample_sphere(u1, u2) -> Vec3:
     """Uniform direction on the unit sphere."""
     z = 2.0 * u2 - 1.0
-    t = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+    t = sqrt_rn(torch.clamp_min(1.0 - z * z, 0.0))
     theta = PI * (2.0 * u1 - 1.0)
     return Vec3(t * torch.cos(theta), t * torch.sin(theta), z)
 
@@ -96,7 +96,7 @@ def sample_sphere(u1, u2) -> Vec3:
 def sample_hemisphere(u1, u2) -> Vec3:
     """Uniform direction on the +Z hemisphere."""
     z = u2
-    t = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+    t = sqrt_rn(torch.clamp_min(1.0 - z * z, 0.0))
     theta = TWO_PI * u1
     return Vec3(t * torch.cos(theta), t * torch.sin(theta), z)
 
@@ -104,14 +104,14 @@ def sample_hemisphere(u1, u2) -> Vec3:
 def sample_hemisphere_cos(u1, u2) -> Vec3:
     """Cosine-weighted direction on the +Z hemisphere."""
     theta = TWO_PI * u1
-    r = torch.sqrt(u2)
-    z = torch.sqrt(torch.clamp_min(1.0 - u2, 0.0))
+    r = sqrt_rn(u2)
+    z = sqrt_rn(torch.clamp_min(1.0 - u2, 0.0))
     return Vec3(r * torch.cos(theta), r * torch.sin(theta), z)
 
 
 def sample_gaussian2(u1, u2):
     """Box-Muller 2D normal — used for the per-pass AA jitter."""
-    r = torch.sqrt(torch.clamp_min(-2.0 * torch.log(torch.clamp_min(u1, 1e-12)), 0.0))
+    r = sqrt_rn(torch.clamp_min(-2.0 * torch.log(torch.clamp_min(u1, 1e-12)), 0.0))
     theta = TWO_PI * u2
     return r * torch.cos(theta), r * torch.sin(theta)
 
@@ -146,7 +146,7 @@ def spherical_to_cartesian(phi, cos_theta) -> Vec3:
     sees 0, so its gradient stays finite there."""
     s2 = 1.0 - cos_theta * cos_theta
     pos = s2 > 0.0
-    sin_theta = torch.where(pos, torch.sqrt(torch.where(pos, s2, 1.0)), 0.0)
+    sin_theta = torch.where(pos, sqrt_rn(torch.where(pos, s2, 1.0)), 0.0)
     return Vec3(sin_theta * torch.cos(phi), sin_theta * torch.sin(phi), cos_theta)
 
 
@@ -162,8 +162,8 @@ def spherical_quad_prepare(s: Vec3, ex: Vec3, ey: Vec3, ref: Vec3):
     """Urena spherical-rectangle frame for sampling a quad by solid angle.
     ``s``: corner, ``ex``/``ey``: full edges, ``ref``: shading point.
     Returns an opaque tuple whose last entry is the solid angle S."""
-    exl = torch.sqrt(torch.clamp_min(dot(ex, ex), 1e-20))
-    eyl = torch.sqrt(torch.clamp_min(dot(ey, ey), 1e-20))
+    exl = sqrt_rn(torch.clamp_min(dot(ex, ex), 1e-20))
+    eyl = sqrt_rn(torch.clamp_min(dot(ey, ey), 1e-20))
     x = ex * (1.0 / exl)
     y = ey * (1.0 / eyl)
     z = cross(x, y)
@@ -181,7 +181,7 @@ def spherical_quad_prepare(s: Vec3, ex: Vec3, ey: Vec3, ref: Vec3):
         nx = ay * z0 - z0 * by
         ny = z0 * bx - ax * z0
         nz = ax * by - ay * bx
-        inv = 1.0 / torch.sqrt(torch.clamp_min(nx * nx + ny * ny + nz * nz, 1e-20))
+        inv = 1.0 / sqrt_rn(torch.clamp_min(nx * nx + ny * ny + nz * nz, 1e-20))
         return nx * inv, ny * inv, nz * inv
 
     n0 = edge_normal(x0, y0, x1, y0)
@@ -209,19 +209,19 @@ def spherical_quad_sample(quad, ref: Vec3, u, v):
     au = u * big_s + k
     sin_au = torch.sin(au)
     fu = (torch.cos(au) * b0 - b1) / torch.where(torch.abs(sin_au) > 1e-7, sin_au, 1e-7)
-    cu = torch.sign(fu) / torch.sqrt(torch.clamp_min(fu * fu + b0 * b0, 1e-20))
+    cu = torch.sign(fu) / sqrt_rn(torch.clamp_min(fu * fu + b0 * b0, 1e-20))
     cu = torch.clamp(cu, -1.0 + 1e-7, 1.0 - 1e-7)
-    xu = -(cu * z0) / torch.sqrt(1.0 - cu * cu)
+    xu = -(cu * z0) / sqrt_rn(1.0 - cu * cu)
     xu = torch.minimum(torch.maximum(xu, x0), x1)
     d2 = xu * xu + z0 * z0
-    d = torch.sqrt(torch.clamp_min(d2, 1e-20))
-    h0 = y0 / torch.sqrt(torch.clamp_min(d2 + y0 * y0, 1e-20))
-    h1 = y1 / torch.sqrt(torch.clamp_min(d2 + y1 * y1, 1e-20))
+    d = sqrt_rn(torch.clamp_min(d2, 1e-20))
+    h0 = y0 / sqrt_rn(torch.clamp_min(d2 + y0 * y0, 1e-20))
+    h1 = y1 / sqrt_rn(torch.clamp_min(d2 + y1 * y1, 1e-20))
     hv = h0 + v * (h1 - h0)
     hv2 = hv * hv
     yv = torch.where(
         hv2 < 1.0 - 1e-6,
-        hv * d / torch.sqrt(torch.clamp_min(1.0 - hv2, 1e-12)),
+        hv * d / sqrt_rn(torch.clamp_min(1.0 - hv2, 1e-12)),
         y1,
     )
     p = ref + x * xu + y * yv + z * z0

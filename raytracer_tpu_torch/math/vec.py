@@ -79,11 +79,36 @@ def length_sq(a: Vec3) -> torch.Tensor:
     return dot(a, a)
 
 
+class _SqrtRN(torch.autograd.Function):
+    """``sqrt_rn`` on the CPU with JAX's gradient, ``g * (0.5 / sqrt(x))`` in
+    float32 (autograd of torch's ``sqrt`` takes ``g / (2 sqrt(x))``, and
+    through the float64 cast it would round once, in float64)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        r = torch.sqrt(x.double()).float()
+        ctx.save_for_backward(r)
+        return r
+
+    @staticmethod
+    def backward(ctx, g):
+        (r,) = ctx.saved_tensors
+        return g * (torch.full_like(r, 0.5) / r)
+
+
 def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
-    """The correctly rounded float32 square root on every device: torch's
-    float32 ``sqrt`` on the CPU is an ulp off in ~0.6% of lanes, where CUDA's
-    and XLA's are correctly rounded; the float64 root rounded to float32 is
-    the correctly rounded one."""
+    """The correctly rounded float32 square root on every device, the one
+    every float32 root of the port takes.  torch's float32 ``sqrt`` on the
+    CPU is an ulp off in ~0.6% of lanes, where CUDA's and XLA's are correctly
+    rounded: on a CUDA tensor this is ``torch.sqrt`` with torch's own
+    gradient (no cast, no extra launch), on the CPU the float64 root rounded
+    to float32, whose gradient while a graph is recorded is JAX's
+    (``_SqrtRN``).  Other dtypes (the float64 runs of the gradient checks)
+    take ``torch.sqrt``."""
+    if x.dtype != torch.float32 or x.is_cuda:
+        return torch.sqrt(x)
+    if x.requires_grad and torch.is_grad_enabled():
+        return _SqrtRN.apply(x)
     return torch.sqrt(x.double()).float()
 
 
@@ -96,7 +121,7 @@ def normalize(a: Vec3, eps: float = 0.0) -> Vec3:
     n2 = length_sq(a)
     if eps:
         n2 = torch.clamp_min(n2, eps)
-    r = torch.sqrt(n2)
+    r = sqrt_rn(n2)
     return Vec3(a.x / r, a.y / r, a.z / r)
 
 
@@ -127,7 +152,7 @@ def refract(i: Vec3, n: Vec3, eta) -> Vec3:
     n_eff = where(out, -n, n)
     c = torch.abs(cosi)
     k = torch.clamp_min(1.0 - eta_eff * eta_eff * (1.0 - c * c), 1e-12)
-    t = i * eta_eff + n_eff * (eta_eff * c - torch.sqrt(k))
+    t = i * eta_eff + n_eff * (eta_eff * c - sqrt_rn(k))
     return normalize(t, eps=1e-20)
 
 

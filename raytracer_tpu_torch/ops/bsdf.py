@@ -18,7 +18,7 @@ import torch
 from ..math.fresnel import fresnel_dielectric, fresnel_metal
 from ..math.microfacet import ggx_d, ggx_g, ggx_pdf, ggx_sample
 from ..math.sampling import sample_hemisphere_cos
-from ..math.vec import Vec3, dot, max_component, normalize, where as vwhere
+from ..math.vec import Vec3, dot, max_component, normalize, sqrt_rn, where as vwhere
 from ..scene.types import (
     BSDF_DIELECTRIC,
     BSDF_DIFFUSE,
@@ -93,7 +93,7 @@ def _refract_through(wo: Vec3, m: Vec3, ior):
     n_opp = vwhere(cosi < 0.0, m, -m)
     c = torch.abs(cosi)
     k = 1.0 - eta * eta * (1.0 - c * c)
-    t = i * eta + n_opp * (eta * c - torch.sqrt(torch.clamp_min(k, 1e-12)))
+    t = i * eta + n_opp * (eta * c - sqrt_rn(torch.clamp_min(k, 1e-12)))
     return normalize(t, eps=1e-6), k > 0.0
 
 

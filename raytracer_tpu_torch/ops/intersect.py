@@ -13,7 +13,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..math.vec import Vec3, normalize, where as vwhere, dot
+from ..math.vec import Vec3, normalize, sqrt_rn, where as vwhere, dot
 from ..scene.types import PRIM_BOX, PRIM_SPHERE, Primitives, Rot3
 
 BIG = 3.0e38
@@ -46,7 +46,7 @@ def _intersect_sphere(o: Vec3, d: Vec3, radius):
     """Stable quadratic; returns (near, far, valid)."""
     v = dot(d, -o)
     det = radius * radius - dot(o, o) + v * v
-    s = torch.sqrt(torch.clamp_min(det, 1e-12))
+    s = sqrt_rn(torch.clamp_min(det, 1e-12))
     return v - s, v + s, det > 0.0
 
 

@@ -17,7 +17,7 @@ import torch
 
 from ..math import sampling
 from ..math.distribution import pdf_2d, sample_2d
-from ..math.vec import Vec3, dot, normalize, where as vwhere
+from ..math.vec import Vec3, dot, normalize, sqrt_rn, where as vwhere
 from ..scene.types import (
     LIGHT_AREA,
     LIGHT_BACKGROUND,
@@ -138,7 +138,7 @@ def env_direction_pdf(env, d: Vec3) -> torch.Tensor:
     """Solid-angle pdf :func:`env_sample_direction` assigns to direction
     ``d`` (the MIS counterpart used when a BSDF-sampled ray escapes)."""
     u, v = sampling.cartesian_to_spherical_uv(d)
-    sin_t = torch.sqrt(torch.clamp_min(1.0 - d.y * d.y, 1e-12))
+    sin_t = sqrt_rn(torch.clamp_min(1.0 - d.y * d.y, 1e-12))
     return pdf_2d(env, u, v) / torch.clamp_min(2.0 * math.pi * math.pi * sin_t, 1e-6)
 
 
@@ -147,10 +147,10 @@ def sphere_cone_cos_max(center: Vec3, radius, point: Vec3):
     Returns (cos_max, dist_to_center, outside)."""
     to_c = center - point
     dc2 = dot(to_c, to_c)
-    dc = torch.sqrt(torch.clamp_min(dc2, 1e-12))
+    dc = sqrt_rn(torch.clamp_min(dc2, 1e-12))
     ratio = torch.clamp(radius / torch.clamp_min(dc, 1e-6), 2e-3, 1.0)
     sin2_max = torch.clamp(ratio * ratio, 4e-6, 1.0 - 1e-7)
-    cos_max = torch.sqrt(1.0 - sin2_max)
+    cos_max = sqrt_rn(1.0 - sin2_max)
     return cos_max, dc, dc2 > radius * radius
 
 
@@ -166,7 +166,7 @@ def illuminate(l: LightSlice, shading_pos: Vec3, shading_frame_normal: Vec3, u1,
     # point / spot
     to_l = l.trans - shading_pos
     sqr_d = dot(to_l, to_l)
-    dist_p = torch.sqrt(torch.clamp_min(sqr_d, 1e-20))
+    dist_p = sqrt_rn(torch.clamp_min(sqr_d, 1e-20))
     dir_p = to_l * (1.0 / dist_p)
     pdf_point = sqr_d
     spot_ok = dot(-dir_p, l.rot.r2) >= l.cos_angle
@@ -177,7 +177,7 @@ def illuminate(l: LightSlice, shading_pos: Vec3, shading_frame_normal: Vec3, u1,
     n_world = l.rot.to_world(n_local)
     to_a = p_world - shading_pos
     sqr_da = dot(to_a, to_a)
-    dist_a = torch.sqrt(torch.clamp_min(sqr_da, 1e-20))
+    dist_a = sqrt_rn(torch.clamp_min(sqr_da, 1e-20))
     dir_a = to_a * (1.0 / dist_a)
     cos_at = dot(n_world, -dir_a)
     inv_area = 1.0 / torch.clamp_min(l.area, 1e-8)
@@ -194,7 +194,7 @@ def illuminate(l: LightSlice, shading_pos: Vec3, shading_frame_normal: Vec3, u1,
         cos_t = cone_local.z
         under = radius * radius - dc * dc * (1.0 - cos_t * cos_t)
         under_pos = under > 0.0
-        sqrt_under = torch.where(under_pos, torch.sqrt(torch.where(under_pos, under, 1.0)), 0.0)
+        sqrt_under = torch.where(under_pos, sqrt_rn(torch.where(under_pos, under, 1.0)), 0.0)
         t_s = dc * cos_t - sqrt_under
         hit = shading_pos + dir_s * t_s
         n_s = normalize(hit - l.trans, eps=1e-20)
@@ -215,7 +215,7 @@ def illuminate(l: LightSlice, shading_pos: Vec3, shading_frame_normal: Vec3, u1,
         p_q, pdf_q = sampling.spherical_quad_sample(quad, shading_pos, u1, u2)
         to_q = p_q - shading_pos
         d2_q = dot(to_q, to_q)
-        dist_q = torch.sqrt(torch.clamp_min(d2_q, 1e-20))
+        dist_q = sqrt_rn(torch.clamp_min(d2_q, 1e-20))
         dir_q = to_q * (1.0 / dist_q)
         cos_at_q = dot(l.rot.r2, -dir_q)
         is_rect = l.shape_kind == SHAPE_RECT

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from ..color.spectrum import cauchy_ior
-from ..math.vec import Vec3, cross, dot, normalize, where as vwhere
+from ..math.vec import Vec3, cross, dot, normalize, sqrt_rn, where as vwhere
 from ..scene.types import Rot3, SceneData
 from .bsdf import MatParams
 from .textures import sample_texture_many
@@ -69,7 +69,7 @@ def apply_normal_map(scene: SceneData, frame):
     t = sample_texture_many(scene.textures, ntex, frame.tex_u, frame.tex_v)
     nx = 2.0 * t.x - 1.0
     ny = 2.0 * t.y - 1.0
-    nz = torch.sqrt(torch.clamp_min(1.0 - nx * nx - ny * ny, 1e-12))
+    nz = sqrt_rn(torch.clamp_min(1.0 - nx * nx - ny * ny, 1e-12))
     s = mats.normal_strength[idx]
     # lerp(+Z, n, strength)
     nx = nx * s

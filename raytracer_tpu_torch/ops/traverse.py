@@ -48,7 +48,7 @@ from .bvh_traverse import bvh_any_hit, bvh_closest_hit, eval_tri_frame
 from .cluster_traverse import cluster_any_hit, cluster_closest_hit
 from .intersect import BIG, Hits, PrimFrame, eval_prim_frame, intersect_prims, merge_frames
 from .pallas_traverse import pallas_sorted_any_hit, pallas_sorted_closest_hit
-from .wave2_traverse import interp_tri_attr, wave2_any_hit, wave2_closest_hit
+from .wave2_traverse import ablation_switch, interp_tri_attr, wave2_any_hit, wave2_closest_hit
 from .wave_traverse import wave_any_hit, wave_closest_hit
 
 _MODE = "auto"
@@ -279,8 +279,11 @@ def scene_hit_frame(scene: SceneData, hits: Hits, origin: Vec3, direction: Vec3,
     (wave2; object-space normals of instanced hits are rotated to world
     before normalizing), else from a gather of each triangle table.
     ``time``: each ray's shutter time, for the pose of a moving prim (an
-    instance moves without turning, so its frame needs no time)."""
+    instance moves without turning, so its frame needs no time).
+    ``RT_SKIP_TRI_FRAME`` (a diagnostic) returns the prim frame alone."""
     frame = eval_prim_frame(scene.prims, hits.prim_id, origin, direction, hits.t, time=time)
+    if ablation_switch("RT_SKIP_TRI_FRAME"):
+        return frame
     is_tri = hits.tri_id >= 0
     inst = hits.inst_id if hits.inst_id is not None else torch.full_like(hits.tri_id, -1)
 

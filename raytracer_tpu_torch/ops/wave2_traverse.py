@@ -7,7 +7,11 @@ Exact closest-hit / any-hit over a ``ClusterSet`` for a whole wavefront:
 1. ``_p1_extract``: dense (rays x Cs) slab test against the super-cluster
    boxes; each ray takes its ``kc`` smallest overlapped super ids above its
    cursor, ascending (the reference bit-packs the hit matrix on the TPU's
-   matrix unit; only its result is ported).
+   matrix unit; only its result is ported).  ``_p1_extract_ftb``
+   (``RT_WAVE2_FTB=1``, front to back): each overlap gets one int32 key
+   ``(bits(t_enter) >> id_bits) << id_bits | super``, and each ray takes its
+   ``kc`` least keys above its cursor key, nearest first, with a lower bound
+   on the next one's entry distance for early termination.
 2. ``_pair_join``: one stable sort of the (ray, super) pairs on the key
    ``super << shift | octant | origin Morton``; a second sort filler-pads
    every super's run to whole ``CHUNK``-pair chunks, so no chunk crosses
@@ -20,6 +24,16 @@ Exact closest-hit / any-hit over a ``ClusterSet`` for a whole wavefront:
    exist) are compacted into ``NSUB``-ray sub-wavefronts and traced again
    until none remain — the exactness guarantee.
 
+Settings, read from the environment as the reference reads them:
+``RT_WAVE2_CHUNK`` (pairs per chunk, a multiple of 128; sets ``ROWS``, the
+kernel's rows per chunk) and ``RT_WAVE2_NSUB`` at import;
+``RT_WAVE2_FTB`` and ``RT_WAVE2_KC`` when ``wave2_closest_hit`` or
+``wave2_any_hit`` is called; ``RT_WAVE2_SPATIAL_KEY=0`` (the pair key
+without its octant and Morton part) and the diagnostic
+``RT_WAVE2_SKIP_KERNEL`` (the sort-join runs, the kernel does not, every
+chunk reports "processed, no hit") at each round.  ``STATS`` counts the
+windows, rounds, continuation iterations, pair slots and host syncs.
+
 The stages keep the reference's padding and ordering so the two packages
 can be compared stage by stage.  The reference's ``lax.while_loop`` trip
 counts, computed on the device, become python loops with one ``.item()``
@@ -30,30 +44,69 @@ autograd graph, as in the reference.
 from __future__ import annotations
 
 import ctypes
+import os
 from typing import NamedTuple
 
 import torch
 
 from ..math.vec import Vec3
 from ..scene.clusters import SUB_PER_SUPER, ClusterSet
+from ..utils.logger import log_info, log_warning
 from .cluster_traverse import slab_inv as _inv
 from .intersect import BIG
 
 TRI_EPS = 1e-7
 HIT_EPS = 1e-4
-CHUNK = 1024  # pairs per MT work chunk
-assert CHUNK % 128 == 0, "a chunk is whole rows of 128 pairs"
-ROWS = CHUNK // 128
-NSUB = 16384  # continuation sub-wavefront size
+CHUNK = int(os.environ.get("RT_WAVE2_CHUNK", "1024"))  # pairs per MT work chunk
+if CHUNK <= 0 or CHUNK % 128:
+    raise ValueError(f"RT_WAVE2_CHUNK={CHUNK}: a chunk is whole rows of 128 pairs")
+ROWS = CHUNK // 128  # rows of 128 pairs per chunk: the kernel's blocks per chunk
+NSUB = int(os.environ.get("RT_WAVE2_NSUB", "16384"))  # continuation sub-wavefront size
+if (CHUNK, NSUB) != (1024, 16384):
+    log_info("wave2: CHUNK %d (%d rows), NSUB %d from the environment", CHUNK, ROWS, NSUB)
 SUBWAVE = 65536  # rays per traced window
-KC = 16  # candidate supers per ray per round
+KC = 16  # candidate supers per ray per round, id order
+KC_FTB = 4  # the same, front to back: most rays resolve on their few nearest supers
 BIGF = 3.0e38
+IMAX = 2**31 - 1
 _P1_CHUNK_ELEMS = 1 << 26  # bound on one (rays x Cs) slab-test block
+# wave2_mt_launch: 15 pointers, (b2, rows, cs, k, any_hit), the stream
+MT_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+# windows traced, rounds run (first and continuation), continuation
+# iterations, the most in one window, (ray, candidate) pair slots, host syncs
+STATS = dict.fromkeys(("windows", "rounds", "continuations", "max_window_continuations", "pair_slots",
+                       "host_syncs"), 0)
+_SWITCHES = {}  # ablation switch -> the value it was last read with
+
+
+def reset_stats():
+    for key in STATS:
+        STATS[key] = 0
+
+
+def ablation_switch(name: str) -> bool:
+    """A diagnostic switch of the environment (``RT_WAVE2_SKIP_KERNEL``,
+    ``RT_SKIP_TRI_FRAME``): on when set to a non-empty value, as in the
+    reference.  Logged whenever it is read with another value than before."""
+    value, before = os.environ.get(name, ""), _SWITCHES.get(name)
+    if before != value:
+        _SWITCHES[name] = value
+        if value:
+            log_warning("%s=%s: diagnostic ablation on; answers are not the renderer's", name, value)
+        elif before:
+            log_info("%s off", name)
+    return bool(value)
 
 
 def _key_shift(cs: int) -> int:
     """Shift of the super id in the pair key; keeps the key inside int32."""
     return max(0, min(21, 31 - max(1, int(cs + 1).bit_length())))
+
+
+def _id_bits(cs: int) -> int:
+    """Bits of the super id in a front-to-back key."""
+    return max(1, int(cs).bit_length())
 
 
 def _stable_sort(key, *payloads):
@@ -71,6 +124,19 @@ def _arange(n, like):
 # --------------------------------------------------------------------------
 
 
+def _slab(box, ox, oy, oz, ix, iy, iz):
+    """(tmin, tmax) of the (rows, 1) rays against every (Cs, 6) box: (rows, Cs) each."""
+    t1x = (box[None, :, 0] - ox) * ix
+    t2x = (box[None, :, 3] - ox) * ix
+    t1y = (box[None, :, 1] - oy) * iy
+    t2y = (box[None, :, 4] - oy) * iy
+    t1z = (box[None, :, 2] - oz) * iz
+    t2z = (box[None, :, 5] - oz) * iz
+    tmin = torch.maximum(torch.maximum(torch.minimum(t1x, t2x), torch.minimum(t1y, t2y)), torch.minimum(t1z, t2z))
+    tmax = torch.minimum(torch.minimum(torch.maximum(t1x, t2x), torch.maximum(t1y, t2y)), torch.maximum(t1z, t2z))
+    return tmin, tmax
+
+
 def _p1_extract(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tl, cursor, kc: int):
     """(N,) rays -> (cand (N, kc) ascending super ids with ``hit & id >
     cursor``, padded with Cs; remaining (N,) = max(total - kc, 0))."""
@@ -83,16 +149,7 @@ def _p1_extract(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tl, cursor, kc: int)
     cands, rems = [], []
     for a in range(0, n, rows):
         col = lambda v: v[a:a + rows, None]
-        t1x = (box[None, :, 0] - col(ox)) * col(ix)
-        t2x = (box[None, :, 3] - col(ox)) * col(ix)
-        t1y = (box[None, :, 1] - col(oy)) * col(iy)
-        t2y = (box[None, :, 4] - col(oy)) * col(iy)
-        t1z = (box[None, :, 2] - col(oz)) * col(iz)
-        t2z = (box[None, :, 5] - col(oz)) * col(iz)
-        tmin = torch.maximum(torch.maximum(torch.minimum(t1x, t2x), torch.minimum(t1y, t2y)),
-                             torch.minimum(t1z, t2z))
-        tmax = torch.minimum(torch.minimum(torch.maximum(t1x, t2x), torch.maximum(t1y, t2y)),
-                             torch.maximum(t1z, t2z))
+        tmin, tmax = _slab(box, col(ox), col(oy), col(oz), col(ix), col(iy), col(iz))
         ent = torch.clamp_min(tmin, 0.0)
         # tl's SIGN encodes per-ray any-hit mode; the limit is |tl|
         hit = (tmax >= ent) & (ent < torch.abs(col(tl))) & (cid > col(cursor))
@@ -100,6 +157,45 @@ def _p1_extract(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tl, cursor, kc: int)
         cands.append(torch.topk(ids, kc, dim=1, largest=False, sorted=True).values)
         rems.append(torch.clamp_min(hit.sum(1, dtype=torch.int32) - kc, 0))
     return torch.cat(cands), torch.cat(rems)
+
+
+def _p1_extract_ftb(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tl, cur_key, kc: int):
+    """Front-to-back extraction: (N,) rays -> (cand (N, kc) the super ids of
+    each ray's ``kc`` least keys above ``cur_key``, nearest first, padded
+    with Cs; next_t (N,) the entry distance of the next key, floored to its
+    quantization, +inf when none; last (N,) the last key emitted, else
+    ``cur_key``).  A key is ``(bits(t_enter) >> id_bits) << id_bits | super``
+    in int32: the bits of a non-negative float32 order as its value, so key
+    order is distance order, ties to the lower id.  The reference peels
+    ``kc + 1`` minima one by one; the keys of a ray are distinct, so its
+    ``kc + 1`` least keys in order (``topk``) are the same values."""
+    n = ox.shape[0]
+    cs = cs_set.num_supers
+    idb = _id_bits(cs)
+    box = cs_set.super_box
+    cid = _arange(cs, ox)[None, :]
+    ix, iy, iz = _inv(dx), _inv(dy), _inv(dz)
+    rows = max(1, _P1_CHUNK_ELEMS // max(cs, 1))
+    take = min(kc + 1, cs)
+    cands, nexts, lasts = [], [], []
+    for a in range(0, n, rows):
+        col = lambda v: v[a:a + rows, None]
+        tmin, tmax = _slab(box, col(ox), col(oy), col(oz), col(ix), col(iy), col(iz))
+        # + 0.0 turns a -0.0 entry into +0.0, as XLA's max(-0.0, 0.0) does
+        # and torch's clamp does not: the key reads the bits
+        ent = torch.clamp_min(tmin, 0.0) + 0.0
+        hit = (tmax >= ent) & (ent < torch.abs(col(tl)))
+        key = ((ent.view(torch.int32) >> idb) << idb) | cid
+        kmat = torch.where(hit & (key > col(cur_key)), key, IMAX)
+        least = torch.topk(kmat, take, dim=1, largest=False, sorted=True).values
+        if take <= kc:  # fewer supers than kc + 1: the missing keys are empty
+            least = torch.cat([least, least.new_full((least.shape[0], kc + 1 - take), IMAX)], 1)
+        got = least[:, :kc] < IMAX
+        cands.append(torch.where(got, least[:, :kc] & ((1 << idb) - 1), cs))
+        lasts.append(torch.where(got, least[:, :kc], col(cur_key)).amax(1))
+        nxt = least[:, kc]
+        nexts.append(torch.where(nxt < IMAX, ((nxt >> idb) << idb).view(torch.float32), float("inf")))
+    return torch.cat(cands), torch.cat(nexts), torch.cat(lasts)
 
 
 # --------------------------------------------------------------------------
@@ -123,7 +219,7 @@ def _pair_join(cs_set: ClusterSet, cand, ox, oy, oz, dx, dy, dz, tl) -> PairJoin
     # composite key (super id | ray octant | ray origin Morton): chunks stay
     # single-super while each chunk's rows become spatially and
     # directionally coherent, so the kernel's per-(row, sub) gate culls
-    key_shift = _key_shift(cs)
+    key_shift = _key_shift(cs) if os.environ.get("RT_WAVE2_SPATIAL_KEY", "1") != "0" else 0
     mbits = max(0, key_shift - 3)
     box = cs_set.super_box
     valid_s = box[:, 0] <= box[:, 3]
@@ -314,13 +410,12 @@ def mt_chunks(block_cluster, super_geom, super_sbox, ox, oy, oz, dx, dy, dz, tl,
         raise ValueError("mt_chunks: inputs do not match the kernel's dtypes, shapes, device, layout or alignment")
     from .cuda_build import kernel_function
 
-    fn = kernel_function("wave2_mt", "wave2_mt_launch",
-                         [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    fn = kernel_function("wave2_mt", "wave2_mt_launch", MT_ARGTYPES)
     # one allocation for the five (b2, ROWS, 128) results; tri and done are its int32 views
     out = torch.empty((5, b2, ROWS, 128), dtype=torch.float32, device=dev)
     t, tri, u, v, done = out[0], out[1].view(torch.int32), out[2], out[3], out[4].view(torch.int32)
     o0, plane = out.data_ptr(), b2 * CHUNK * 4
-    rc = fn(*ptrs, o0, o0 + plane, o0 + 2 * plane, o0 + 3 * plane, o0 + 4 * plane, b2, cs, k, int(any_hit),
+    rc = fn(*ptrs, o0, o0 + plane, o0 + 2 * plane, o0 + 3 * plane, o0 + 4 * plane, b2, ROWS, cs, k, int(any_hit),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"wave2_mt kernel launch failed: cudaError {rc}")
@@ -336,16 +431,31 @@ mt_chunks.launches = 0
 # --------------------------------------------------------------------------
 
 
-def _round(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tl, cursor, kc: int, any_hit: bool):
+def _round(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tl, cursor, kc: int, any_hit: bool, ftb: bool = False):
     """Extraction + join + MT + winner select on one (N,) wavefront.
-    Returns (t, tri, u, v, new_cursor, unresolved); t == |tl| where no hit."""
+    Returns (t, tri, u, v, new_cursor, unresolved); t == |tl| where no hit.
+    ``ftb``: front-to-back extraction; ``cursor`` is then the last key
+    visited, and a ray is resolved once its next candidate's entry distance
+    cannot beat its hit."""
     n = ox.shape[0]
     cs = cs_set.num_supers
     ah_ray = tl < 0.0
-    cand, remaining = _p1_extract(cs_set, ox, oy, oz, dx, dy, dz, tl, cursor, kc)
+    if ftb:
+        cand, next_t, new_key = _p1_extract_ftb(cs_set, ox, oy, oz, dx, dy, dz, tl, cursor, kc)
+    else:
+        cand, remaining = _p1_extract(cs_set, ox, oy, oz, dx, dy, dz, tl, cursor, kc)
     join = _pair_join(cs_set, cand, ox, oy, oz, dx, dy, dz, tl)
-    outs = mt_chunks(join.block_cluster, cs_set.super_geom, cs_set.super_sbox, *join.pairs,
-                     any_hit=any_hit)
+    if ablation_switch("RT_WAVE2_SKIP_KERNEL"):
+        # the reference's stand-in: every chunk "processed, no hit", so the
+        # sort-join's bill shows without the kernel's
+        tla = torch.abs(join.pairs[6])
+        outs = (tla, torch.full_like(tla, -1, dtype=torch.int32), torch.zeros_like(tla), torch.zeros_like(tla),
+                (tla > 0.0).to(torch.int32))
+    else:
+        outs = mt_chunks(join.block_cluster, cs_set.super_geom, cs_set.super_sbox, *join.pairs,
+                         any_hit=any_hit)
+    STATS["rounds"] += 1
+    STATS["pair_slots"] += n * kc
     # back to ray-major pair order (pads and fillers carry idx >= p -> tail)
     _, t_p, tri_p, u_p, v_p, done_p = _stable_sort(join.fidx, *(o.reshape(-1) for o in outs))
     p = n * kc
@@ -367,33 +477,44 @@ def _round(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tl, cursor, kc: int, any_
 
     unproc = slot_valid & (done_p == 0)
     any_unproc = unproc.any(1)
-    min_unproc = torch.where(unproc, cand, cs + 1).amin(1)
-    max_extracted = torch.where(slot_valid, cand, -1).amax(1)
-    new_cursor = torch.where(any_unproc, min_unproc - 1, torch.maximum(max_extracted, cursor))
-    unresolved = any_unproc | (remaining > 0)
+    if ftb:
+        # no slot is left unprocessed (runs are filler-padded to whole
+        # chunks); if one were, the ray would retry from its cursor
+        new_cursor = torch.where(any_unproc, cursor, new_key)
+        unresolved = any_unproc | (next_t < t_round)
+    else:
+        min_unproc = torch.where(unproc, cand, cs + 1).amin(1)
+        max_extracted = torch.where(slot_valid, cand, -1).amax(1)
+        new_cursor = torch.where(any_unproc, min_unproc - 1, torch.maximum(max_extracted, cursor))
+        unresolved = any_unproc | (remaining > 0)
     if any_hit:
         unresolved = unresolved & (best_tri < 0)
     unresolved = unresolved & ~(ah_ray & (best_tri >= 0))
     return t_round, best_tri, best_u, best_v, new_cursor, unresolved
 
 
-def _window_trace(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tm, kc: int, any_hit: bool, max_iters: int):
+def _window_trace(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tm, kc: int, any_hit: bool, max_iters: int,
+                  ftb: bool = False):
     """Round + compacted-continuation loop on one padded window.  ``tm`` may
     be sign-encoded (negative = occlusion query with limit |tm|)."""
     n = ox.shape[0]
+    STATS["windows"] += 1
     cursor0 = torch.full((n,), -1, dtype=torch.int32, device=ox.device)
-    t, tri, u, v, cur, unres = _round(cs_set, ox, oy, oz, dx, dy, dz, tm, cursor0, kc, any_hit)
+    t, tri, u, v, cur, unres = _round(cs_set, ox, oy, oz, dx, dy, dz, tm, cursor0, kc, any_hit, ftb)
     nsub = min(NSUB, n)
+    iters = 0
     for _ in range(max_iters):
-        if not bool(unres.any()):  # one host sync per continuation round
+        STATS["host_syncs"] += 1  # the check below: one host sync per continuation round
+        if not bool(unres.any()):
             break
+        iters += 1
         # compact up to nsub unresolved rays (ascending index, stable)
         sel = torch.sort((~unres).to(torch.int32), stable=True).indices[:nsub]
         live = unres[sel]
         g = lambda a: a[sel]
         cap = torch.where(live, torch.where(g(tm) < 0.0, -g(t), g(t)), 0.0)
         t_r, tri_r, u_r, v_r, cur_r, unres_r = _round(
-            cs_set, g(ox), g(oy), g(oz), g(dx), g(dy), g(dz), cap, g(cur), kc, any_hit)
+            cs_set, g(ox), g(oy), g(oz), g(dx), g(dy), g(dz), cap, g(cur), kc, any_hit, ftb)
         improved = live & (t_r < g(t))
         idx = sel[live]  # writes for dead lanes are dropped
         upd = lambda a, new: a.index_copy_(0, idx, torch.where(improved, new, g(a))[live])
@@ -403,10 +524,13 @@ def _window_trace(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tm, kc: int, any_h
         upd(t, t_r)
         cur.index_copy_(0, idx, cur_r[live])
         unres.index_copy_(0, idx, (live & unres_r)[live])
+    STATS["continuations"] += iters
+    STATS["max_window_continuations"] = max(STATS["max_window_continuations"], iters)
     return t, tri, u, v, unres
 
 
-def _wave2_trace(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tm, kc: int, any_hit: bool, max_iters: int):
+def _wave2_trace(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tm, kc: int, any_hit: bool, max_iters: int,
+                 ftb: bool = False):
     """Full-wavefront trace: rays with work are compacted to the front with
     one stable sort and traced in windows of SUBWAVE rays, so the cost
     follows the live ray count down the bounce ladder."""
@@ -420,6 +544,7 @@ def _wave2_trace(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tm, kc: int, any_hi
         padded(ox, 0.0), padded(oy, 0.0), padded(oz, 0.0),
         padded(dx, 1.0), padded(dy, 0.0), padded(dz, 0.0), padded(tm, 0.0))
     n_sub = -(-int(wanted.sum().item()) // s)  # one host sync per trace
+    STATS["host_syncs"] += 1
 
     t = ctm.clone()
     tri = torch.full((n,), -1, dtype=torch.int32, device=ox.device)
@@ -429,7 +554,7 @@ def _wave2_trace(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tm, kc: int, any_hi
     for i in range(n_sub):
         w = slice(i * s, (i + 1) * s)
         t[w], tri[w], u[w], v[w], ovf[w] = _window_trace(
-            cs_set, cox[w], coy[w], coz[w], cdx[w], cdy[w], cdz[w], ctm[w], kc, any_hit, max_iters)
+            cs_set, cox[w], coy[w], coz[w], cdx[w], cdy[w], cdz[w], ctm[w], kc, any_hit, max_iters, ftb)
 
     # back to caller order
     back = lambda a: torch.empty_like(a).index_copy_(0, ridx.long(), a)[:n0]
@@ -441,15 +566,31 @@ def _rays(origin: Vec3, direction: Vec3, t_max):
     return origin.x, origin.y, origin.z, direction.x, direction.y, direction.z, tm
 
 
+def _ftb_default() -> bool:
+    """Front-to-back extraction, off unless ``RT_WAVE2_FTB=1``."""
+    return os.environ.get("RT_WAVE2_FTB", "0") == "1"
+
+
+def _kc_default(ftb: bool) -> int:
+    """Candidates per ray per round: ``RT_WAVE2_KC``, else 4 front to back
+    and 16 in id order."""
+    env = os.environ.get("RT_WAVE2_KC")
+    if env:
+        return int(env)
+    return KC_FTB if ftb else KC
+
+
 @torch.no_grad()
 def wave2_closest_hit(cs: ClusterSet, origin: Vec3, direction: Vec3, t_max, kc: int = None,
-                      max_iters: int = 64, with_attrs: bool = False):
+                      max_iters: int = 64, with_attrs: bool = False, ftb: bool = None):
     """Closest hit. Returns (t, tri_id, u, v, overflow) — exact; overflow
     marks rays still unresolved after ``max_iters`` continuation rounds.
     ``with_attrs=True`` also returns the winner's interpolated shading
-    frame (``interp_tri_attr``)."""
-    kc = min(kc or KC, cs.num_supers)
-    t, tri, u, v, overflow = _wave2_trace(cs, *_rays(origin, direction, t_max), kc, False, max_iters)
+    frame (``interp_tri_attr``).  ``ftb`` and ``kc`` default to the
+    environment's (``_ftb_default``, ``_kc_default``)."""
+    ftb = _ftb_default() if ftb is None else ftb
+    kc = min(kc or _kc_default(ftb), cs.num_supers)
+    t, tri, u, v, overflow = _wave2_trace(cs, *_rays(origin, direction, t_max), kc, False, max_iters, ftb)
     t = torch.where(tri < 0, BIG, t)
     if with_attrs:
         return t, tri, u, v, overflow, interp_tri_attr(cs, tri, u, v)
@@ -457,10 +598,12 @@ def wave2_closest_hit(cs: ClusterSet, origin: Vec3, direction: Vec3, t_max, kc: 
 
 
 @torch.no_grad()
-def wave2_any_hit(cs: ClusterSet, origin: Vec3, direction: Vec3, t_max, kc: int = None, max_iters: int = 64):
+def wave2_any_hit(cs: ClusterSet, origin: Vec3, direction: Vec3, t_max, kc: int = None, max_iters: int = 64,
+                  ftb: bool = None):
     """Any-hit occlusion query. Returns (occluded, overflow)."""
-    kc = min(kc or KC, cs.num_supers)
-    _, tri, _, _, overflow = _wave2_trace(cs, *_rays(origin, direction, t_max), kc, True, max_iters)
+    ftb = _ftb_default() if ftb is None else ftb
+    kc = min(kc or _kc_default(ftb), cs.num_supers)
+    _, tri, _, _, overflow = _wave2_trace(cs, *_rays(origin, direction, t_max), kc, True, max_iters, ftb)
     return tri >= 0, overflow
 
 

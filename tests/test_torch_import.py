@@ -102,9 +102,6 @@ NOT_PORTED = {
     # a one-hot matmul for the TPU's matrix unit; plain indexing returns the
     # same table values (ROADMAP "Decisions")
     "ops/smallgather.py": None,
-    # the pure-Python tree builder: the port raises without g++, since a
-    # slower builder could order ties differently (ROADMAP queue 3)
-    ("scene/bvh.py", "build_sah_tree"): None,
     # a typing alias of floats and jnp arrays
     ("math/vec.py", "Scalar"): None,
     # renamed: the port has no jax_ names
@@ -151,6 +148,32 @@ def test_every_public_name_of_the_reference_has_a_counterpart():
                 elif NOT_PORTED[key] is not None:
                     assert NOT_PORTED[key] in have, key
     assert not missing, missing
+
+
+_ENV_NAME = re.compile(r"""["'](RT_[A-Z0-9_]+)["']""")
+
+
+def _env_names(root, skip=()):
+    """The ``RT_*`` names that the Python sources under ``root`` read: every
+    string literal of that form."""
+    names = set()
+    for dirpath, dirs, files in os.walk(root):
+        dirs[:] = [d for d in dirs if d not in skip]
+        for f in files:
+            if f.endswith(".py"):
+                names.update(_ENV_NAME.findall(open(os.path.join(dirpath, f)).read()))
+    return names
+
+
+def test_every_environment_variable_of_the_reference_is_read_by_the_port():
+    """Every ``RT_*`` setting that the JAX package reads (the traversal mode,
+    the log level, wave2's extraction order, candidates, chunk size,
+    continuation size, pair key, and the two ablation switches) is read by
+    the port too."""
+    ref = _env_names(os.path.join(ROOT, "raytracer_tpu"))
+    port = _env_names(PKG, skip=("_build",))
+    assert {"RT_WAVE2_FTB", "RT_WAVE2_CHUNK", "RT_SKIP_TRI_FRAME"} <= ref
+    assert not ref - port, sorted(ref - port)
 
 
 _FOREIGN_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|raytracer_tpu)(?![_\w])")

@@ -18,7 +18,9 @@ on one device: ``chip_smoke.py`` phases 17 to 19.
   pass profiled; the first 65,536 vertex-connection rays that need an
   answer, for ``wave2_mt`` against its twin.
 - ``debug_and_counters`` (phase 19): ``render_debug`` in every mode,
-  ``TriangleID`` on the device against the CPU on a crop of the rays, a MIS
+  ``TriangleID`` on the device against the CPU on a crop of the rays (both
+  under ``bvh``) and, under wave2, the kernel against its twin on the
+  device, a MIS
   pass with ``count_traversal``, and the instanced scene's traversal cost
   beside the baked one's.
 
@@ -57,7 +59,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 
-from torch_check_traverse import check  # noqa: E402
+from torch_check_traverse import check, twin_engine  # noqa: E402
 
 from raytracer_tpu_torch import cli  # noqa: E402
 from raytracer_tpu_torch.integrators import light_tracer as lt  # noqa: E402
@@ -420,7 +422,8 @@ def hall_integrators(scene, meta, cam, dev, log, smi, profiled, size=512, label=
 def debug_and_counters(scene, meta, cam, dev, log, inst_scene=None, size=512, crop=64, label="interior800k"):
     """Phase 19: every debug mode on the frame's camera rays, TriangleID on
     the device against the CPU (a copy of the scene's tables) on a
-    ``crop``^2 block of the same rays, one
+    ``crop``^2 block of the same rays, both under ``bvh``, and the
+    device's wave2 crop against wave2 with the kernel's plain twin, one
     MIS pass with ``count_traversal``, and the instanced scene's traversal
     cost beside the baked one's.  Returns the counters' numbers."""
     rays = camera_rays(cam, size, dev)
@@ -457,22 +460,37 @@ def debug_and_counters(scene, meta, cam, dev, log, inst_scene=None, size=512, cr
         check(bool(torch.isfinite(img).all()) and constant == expect_constant,
               f"debug [{mode}]: finite, and constant only where the scene's own data is")
 
-    # TriangleID of a crop of the same rays on the CPU
+    # TriangleID of a crop of the same rays on the CPU, both sides under
+    # `bvh`: wave2's plain twin on the CPU pays for every super's filler
+    # chunks whatever the crop (minutes for the hall's 1,563 supers)
     lo = (size - crop) // 2
     sel = torch.zeros(size, size, dtype=torch.bool, device=dev)
     sel[lo:lo + crop, lo:lo + crop] = True
     sel = sel.reshape(-1)
     crop_rays = Rays(*(type(v)(*(c[sel] for c in v)) for v in rays))
-    got = torch.stack(tuple(render_debug(scene, meta, crop_rays, MODE_TRIANGLE_ID)), -1).cpu()
     cpu_rays = Rays(*(type(v)(*(c.cpu() for c in v)) for v in crop_rays))
     t0 = time.perf_counter()
     scene_cpu = scene_on(scene, "cpu")
     t1 = time.perf_counter()
-    want = torch.stack(tuple(render_debug(scene_cpu, meta, cpu_rays, MODE_TRIANGLE_ID)), -1)
-    log(f"debug [TriangleID] {crop}^2 crop: device against CPU ({torch.get_num_threads()} threads; the copy "
-        f"{t1 - t0:.1f} s, the CPU's render {time.perf_counter() - t1:.1f} s), "
-        f"{int((got != want).any(-1).sum())} of {crop * crop} pixels differ")
-    check(torch.equal(got, want), f"debug [TriangleID] on the {crop}^2 crop equals the CPU's")
+    wave2_ids = torch.stack(tuple(render_debug(scene, meta, crop_rays, MODE_TRIANGLE_ID)), -1).cpu()
+    with twin_engine():
+        twin_ids = torch.stack(tuple(render_debug(scene, meta, crop_rays, MODE_TRIANGLE_ID)), -1).cpu()
+    saved_mode = trv.get_traversal_mode()
+    trv.set_traversal_mode("bvh")
+    try:
+        got = torch.stack(tuple(render_debug(scene, meta, crop_rays, MODE_TRIANGLE_ID)), -1).cpu()
+        t2 = time.perf_counter()
+        want = torch.stack(tuple(render_debug(scene_cpu, meta, cpu_rays, MODE_TRIANGLE_ID)), -1)
+    finally:
+        trv.set_traversal_mode(saved_mode)
+    log(f"debug [TriangleID] {crop}^2 crop under bvh: device against CPU ({torch.get_num_threads()} threads; the "
+        f"copy {t1 - t0:.1f} s, the CPU's render {time.perf_counter() - t2:.1f} s), "
+        f"{int((got != want).any(-1).sum())} of {crop * crop} pixels differ; under wave2 the kernel differs from its "
+        f"twin on {int((wave2_ids != twin_ids).any(-1).sum())}, and from bvh on "
+        f"{int((wave2_ids != want).any(-1).sum())}")
+    check(torch.equal(got, want), f"debug [TriangleID] on the {crop}^2 crop under bvh equals the CPU's")
+    check(torch.equal(wave2_ids, twin_ids),
+          f"debug [TriangleID] on the {crop}^2 crop under wave2: wave2_mt equals its plain twin on the device")
 
     # one MIS pass with the traversal counters
     vp = Viewport(scene, meta, cam, ViewportParams(size, size, seed=0),

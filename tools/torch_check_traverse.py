@@ -184,6 +184,19 @@ def check(cond, msg, log=print):
     log(f"ok: {msg}")
 
 
+class twin_engine:
+    """Within the block, the wave2 engine calls the kernel's plain twin, not
+    the kernel."""
+
+    def __enter__(self):
+        self.saved = w2.mt_chunks
+        w2.mt_chunks = w2.mt_chunks_reference
+        return self
+
+    def __exit__(self, *exc):
+        w2.mt_chunks = self.saved
+
+
 class plain_kernels:
     """Within the block, the entry points of ``ops/pallas_traverse.py`` call
     the kernels' plain versions instead of the kernels."""
@@ -554,25 +567,35 @@ def check_wave2_window(cs, o, d, any_tl, dev, log=print, label="window", reps=20
     timed.  Returns the closest-hit window's ``ms``, ``plain_ms``,
     ``bound_ms`` and ``bound_by``, the chunk count and the larger
     ``max_abs_err`` of the two."""
-    k = cs.tris_per_cluster
     out = {"max_abs_err": 0.0}
     for any_hit, tl_value in ((False, BIGF), (True, any_tl)):
-        args = _window_chunks(cs, o, d, tl_value, dev)
-        kind = "any-hit" if any_hit else "closest"
-        err, stats = _mt_case(f"{label} K={k} {kind}", args, any_hit, log)
-        out["max_abs_err"] = max(out["max_abs_err"], err)
-        ms = cuda_ms(lambda: w2.mt_chunks(*args, any_hit=any_hit), reps=reps)
-        plain_ms = cuda_ms(lambda: w2.mt_chunks_reference(*args, any_hit=any_hit), reps=plain_reps, warmup=1)
-        # each chunk's 1,024 pairs: 7 inputs + 5 outputs; each live chunk's super block read once
-        n_bytes = args[0].shape[0] * w2.CHUNK * (7 + 5) * 4 + stats["live_chunks"] * (8 * k * 16 + 8 * 8) * 4
-        n_ops = stats["open_gates"] * 128 * k * MT_OPS
-        b_ms, b_by = bound_ms(n_bytes, n_ops)
-        log(f"time [{label} {kind}] at the window shape: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound "
-            f"{b_ms:.6f} ms by {b_by} ({n_bytes} bytes, {n_ops} operations); the same operations without fused "
-            f"multiply-adds, one instruction each: {2 * n_ops / H100_F32_OPS_PER_S * 1e3:.6f} ms")
+        got = check_mt_args(_window_chunks(cs, o, d, tl_value, dev), any_hit, log, label, reps, plain_reps)
+        out["max_abs_err"] = max(out["max_abs_err"], got.pop("max_abs_err"))
         if not any_hit:
-            out.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, chunks=int(args[0].shape[0]))
+            out.update(got)
     return out
+
+
+def check_mt_args(args, any_hit, log=print, label="window", reps=20, plain_reps=5):
+    """The wave2 Möller-Trumbore kernel against its plain twin on the
+    joined chunks ``args`` (what ``mt_chunks`` takes): bit-equal or exit,
+    both timed.  Returns ``ms``, ``plain_ms``, ``bound_ms``, ``bound_by``,
+    ``chunks`` and ``max_abs_err``."""
+    k = args[1].shape[1] // 8
+    kind = "any-hit" if any_hit else "closest"
+    err, stats = _mt_case(f"{label} K={k} {kind}", args, any_hit, log)
+    ms = cuda_ms(lambda: w2.mt_chunks(*args, any_hit=any_hit), reps=reps)
+    plain_ms = cuda_ms(lambda: w2.mt_chunks_reference(*args, any_hit=any_hit), reps=plain_reps, warmup=1)
+    # each chunk's CHUNK pairs: 7 inputs + 5 outputs; each live chunk's super block read once
+    n_bytes = args[0].shape[0] * w2.CHUNK * (7 + 5) * 4 + stats["live_chunks"] * (8 * k * 16 + 8 * 8) * 4
+    n_ops = stats["open_gates"] * 128 * k * MT_OPS
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    log(f"time [{label} {kind}] at the window shape ({w2.ROWS} rows a chunk): kernel {ms:.4f} ms, twin "
+        f"{plain_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by} ({n_bytes} bytes, {n_ops} operations); the same "
+        f"operations without fused multiply-adds, one instruction each: "
+        f"{2 * n_ops / H100_F32_OPS_PER_S * 1e3:.6f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, chunks=int(args[0].shape[0]),
+                max_abs_err=err)
 
 
 def check_wave2_kernel(cs, dev, log=print, reps=20, plain_reps=5, n_rays=w2.SUBWAVE):

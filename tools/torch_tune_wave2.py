@@ -45,7 +45,7 @@ from raytracer_tpu_torch.scene.clusters import build_clusters  # noqa: E402
 
 # kernel -> (launch symbol, its ctypes argument types)
 LAUNCH = {
-    "wave2_mt": ("wave2_mt_launch", [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
+    "wave2_mt": ("wave2_mt_launch", w2.MT_ARGTYPES),
     "phase2_grid": ("phase2_grid_launch", [ctypes.c_void_p] * 15 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
     "phase2_stream": ("phase2_stream_launch", [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
 }
