@@ -29,7 +29,8 @@ sharded train step):
                  materials, the launch probe, the CUDA kernel build
     math/        SoA vector math, sampling, microfacet, fresnel, transforms,
                  packed codecs (octahedral, fp16, RGBE, YCoCg, R11G11B10)
-    utils/       leveled logger, scoped-timer profiler, torch.profiler traces
+    utils/       leveled logger; profiler: spans and host-sync counters on the
+                 torch.profiler clock, Chrome traces with the spans
     color/       sRGB / tonemapping, the spectral resolve
     sampler/     counter-based deterministic sample streams (+ Halton)
     io/          reference-format JSON scene loading, OBJ meshes

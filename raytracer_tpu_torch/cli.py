@@ -7,7 +7,11 @@ stats line.
 
 It renders on the CUDA device, and refuses to run without one unless
 ``--cpu`` is given.  PNG and BMP are written without PIL (``io/png.py``,
-``io/bmp.py``).
+``io/bmp.py``).  ``--trace DIR`` records the program's spans
+(``utils/profiler.py``) from the scene load on, renders under a
+``torch.profiler`` capture written to DIR as a Chrome trace with the spans
+on a track of their own, and prints the report: self time by span, host
+syncs by site, device ms by span and device idle by span.
 """
 
 from __future__ import annotations
@@ -41,6 +45,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--cpu", action="store_true", help="render on the CPU (default: the CUDA device)")
     p.add_argument("--no-low-discrepancy", action="store_true")
     p.add_argument("--stats-json", action="store_true", help="print stats as one JSON line")
+    p.add_argument("--trace", metavar="DIR", default=None,
+                   help="write a Chrome trace of the render with the program's spans to DIR and print their report")
     return p
 
 
@@ -72,6 +78,16 @@ def main(argv=None) -> int:
         print("error: no CUDA device; pass --cpu to render on the CPU", file=sys.stderr)
         return 1
     dev = torch.device("cpu") if args.cpu else torch.device("cuda")
+    if args.trace:
+        from .utils import profiler
+
+        with profiler.enable():
+            return _run(args, kind, mis, ext, dev, profiler)
+    return _run(args, kind, mis, ext, dev)
+
+
+def _run(args, kind, mis, ext, dev, profiler=None) -> int:
+    import torch
 
     from .integrators.path_tracer import RenderParams
     from .io.bmp import write_bmp
@@ -98,6 +114,8 @@ def main(argv=None) -> int:
                                  use_low_discrepancy=not args.no_low_discrepancy),
                   params, device=dev)
 
+    if profiler is not None:
+        profiler.start_device_profile(args.trace)
     t0 = time.perf_counter()
     if kind == "vcm":
         from .integrators.vcm import VcmParams, render_pass_vcm
@@ -120,6 +138,10 @@ def main(argv=None) -> int:
     dt = time.perf_counter() - t0
 
     img = vp.image()
+    if profiler is not None:
+        path, ops = profiler.stop_device_profile()
+        print(profiler.report(ops))
+        print(f"trace -> {path}")
     (write_png if ext == ".png" else write_bmp)(args.output, img)
     if args.hdr_output:
         write_exr(args.hdr_output, vp.radiance())

@@ -48,6 +48,7 @@ from ..scene.types import (
     SceneData,
     SceneMeta,
 )
+from ..utils.profiler import span
 
 RAY_OFFSET = 1e-3  # secondary ray epsilon
 SHADOW_OFFSET = 1e-4  # shadow ray epsilon
@@ -211,153 +212,158 @@ def trace_radiance(scene: SceneData, meta: SceneMeta, rays: Rays, stream: Sample
     static).  ``pass_idx``: in spectral mode, the stratum of the hero
     wavelength (``sample_wavelength_stratified``); None draws it from the
     whole range."""
-    n = rays.origin.x.shape
-    dev = rays.origin.x.device
-    pick_prob = _light_pick_probability(meta, params)
-    fused_shadow = params.mis and not (params.light_strategy == "all" and meta.n_lights > 1)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    with span("integrator"):
+        n = rays.origin.x.shape
+        dev = rays.origin.x.device
+        pick_prob = _light_pick_probability(meta, params)
+        fused_shadow = params.mis and not (params.light_strategy == "all" and meta.n_lights > 1)
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
 
-    wavelength = dispersed = None
-    if params.spectral:
-        u_l, stream = next_1d(stream)
-        wavelength = sample_wavelength(u_l) if pass_idx is None else sample_wavelength_stratified(u_l, pass_idx)
-        dispersed = torch.zeros(n, dtype=torch.bool, device=dev)
-
-    origin, direction = rays.origin, rays.dir
-    # camera segment traced up front; every later segment is traced fused
-    # with the preceding bounce's shadow ray
-    hits = scene_traverse(scene, origin, direction, time=time)
-    throughput = Vec3.ones(n, dev)
-    result = Vec3.zeros(n, dev)
-    alive = torch.ones(n, dtype=torch.bool, device=dev)
-    last_pdf = torch.ones(n, dtype=torch.float32, device=dev)
-    last_specular = torch.ones(n, dtype=torch.bool, device=dev)
-    num_rays = zero + float(n[0])
-    num_shadow = zero
-    num_overflow = zero
-    num_box = zero
-    num_tri = zero
-
-    # the final step only resolves the last segment's miss / light hit
-    for depth in range(params.max_depth + 1):
-        if params.count_traversal:
-            bt, tt = scene_traversal_cost(scene, origin, direction, time=time)
-            live = alive.to(torch.float32)
-            num_box = num_box + (bt * live).sum()
-            num_tri = num_tri + (tt * live).sum()
-        num_overflow = num_overflow + (alive & hits.overflow).to(torch.float32).sum()
-        miss = hits.t >= BIG * 0.5
-        hits = hits._replace(t=torch.clamp(hits.t, 0.0, 1e12))
-
-        # --- miss: global (infinite) lights
-        bg = _eval_global_lights(scene, meta, direction, last_pdf, last_specular, depth, pick_prob,
-                                 use_mis_weights=params.mis)
-        result = result + throughput * bg * (alive & miss).to(torch.float32)
-
-        # --- shading frame at the hit
-        frame = apply_normal_map(scene, scene_hit_frame(scene, hits, origin, direction, time=time))
-
-        # --- direct light hit
-        hit_light = alive & (~miss) & (frame.light_id >= 0)
-        l_hit = gather_light(scene.lights, torch.clamp_min(frame.light_id, 0))
-        cos_at_light = dot(frame.normal, -direction)
-        l_visible = cos_at_light > 1e-7
-        direct_pdf_a = 1.0 / torch.clamp_min(l_hit.area, 1e-8)
-        direct_pdf_w = pdf_area_to_solid_angle(direct_pdf_a, hits.t, cos_at_light)
-        # sphere lights: NEE samples the subtended cone
-        cos_max, _, outside_s = sphere_cone_cos_max(l_hit.trans, l_hit.shape_param.x, origin)
-        is_sphere_area = (l_hit.kind == LIGHT_AREA) & (l_hit.shape_kind == SHAPE_SPHERE)
-        direct_pdf_w = torch.where(is_sphere_area & outside_s, sphere_cap_pdf(cos_max), direct_pdf_w)
-        # rect lights: NEE samples the spherical quad, pdf 1/S
-        hx_r, hy_r = l_hit.shape_param.x, l_hit.shape_param.y
-        corner = l_hit.rot.to_world(Vec3(-hx_r, -hy_r, torch.zeros_like(hx_r))) + l_hit.trans
-        quad = spherical_quad_prepare(corner, l_hit.rot.r0 * (2.0 * hx_r), l_hit.rot.r1 * (2.0 * hy_r), origin)
-        is_rect_area = (l_hit.kind == LIGHT_AREA) & (l_hit.shape_kind == SHAPE_RECT)
-        direct_pdf_w = torch.where(is_rect_area, 1.0 / quad[-1], direct_pdf_w)
-        if params.mis and depth > 0:
-            w_light = torch.where(~last_specular, _combine_mis(last_pdf, direct_pdf_w * pick_prob), 1.0)
-        else:
-            w_light = 1.0
-        m_light = (hit_light & l_visible).to(torch.float32)
-        result = result + throughput * l_hit.color * (w_light * m_light)
-
-        # --- surviving shading lanes
-        survive = alive & (~miss) & (~hit_light)
-        mp = resolve_material(scene, frame.material_id, frame.tex_u, frame.tex_v,
-                              wavelength=wavelength, position=frame.position)
-        result = result + throughput * mp.emission * survive.to(torch.float32)
-        wo_local = world_to_local(-direction, frame.tangent, frame.bitangent, frame.normal)
-
-        is_last = depth >= params.max_depth
-        # NEE applies with the PRE-RR throughput and mask
-        survive_pre, throughput_pre = survive, throughput
-        shadow = None
-        if fused_shadow:
-            nee_c, shadow_rays, shadow_cap, n_sh, stream = _sample_lights_nee(
-                scene, meta, params, frame, mp, wo_local, pick_prob, is_last, stream,
-                time=time, active=survive, defer=True)
-            shadow = (nee_c, shadow_rays, shadow_cap)
-            num_shadow = num_shadow + n_sh
-        elif params.mis:
-            nee, n_sh, n_sh_ovf, stream = _sample_lights_nee(
-                scene, meta, params, frame, mp, wo_local, pick_prob, is_last, stream, time=time, active=survive)
-            num_shadow = num_shadow + n_sh
-            num_overflow = num_overflow + n_sh_ovf
-            result = result + throughput * nee * survive.to(torch.float32)
-
-        # --- depth cap
-        if depth >= params.max_depth:
-            survive = torch.zeros_like(survive)
-
-        # --- Russian roulette
-        u_rr, stream = next_1d(stream)
-        threshold = 0.125 + 0.875 * clip(max_component(mp.base_color), 0.0, 1.0)
-        if depth >= params.min_rr_depth:
-            survive = survive & ~(u_rr > threshold)
-            throughput = throughput * torch.where(survive, 1.0 / torch.clamp_min(threshold, 1e-6), 1.0)
-
-        # --- BSDF sampling
-        u1, u2, u3, stream = next_3d(stream)
-        smp = bsdf_ops.sample(mp, wo_local, u1, u2, u3)
-        survive = survive & smp.valid
-        wi_world = local_to_world(smp.wi, frame.tangent, frame.bitangent, frame.normal)
-        throughput = throughput * vwhere(survive, smp.weight, Vec3.ones(n, dev))
-        survive = survive & (max_component(throughput) > 1e-7)
-
-        # --- the hero wavelength collapses at the first dispersive scatter:
-        # the throughput takes its CIE -> RGB weight once
+        wavelength = dispersed = None
         if params.spectral:
-            collapse = survive & mp.dispersive & (~dispersed)
-            throughput = vwhere(collapse, throughput * Vec3(*rgb_resolve(wavelength)), throughput)
-            dispersed = dispersed | (survive & mp.dispersive)
+            u_l, stream = next_1d(stream)
+            wavelength = sample_wavelength(u_l) if pass_idx is None else sample_wavelength_stratified(u_l, pass_idx)
+            dispersed = torch.zeros(n, dtype=torch.bool, device=dev)
 
-        new_origin = vwhere(survive, frame.position + wi_world * RAY_OFFSET, origin)
-        new_dir = vwhere(survive, wi_world, direction)
+        origin, direction = rays.origin, rays.dir
+        # camera segment traced up front; every later segment is traced fused
+        # with the preceding bounce's shadow ray
+        hits = scene_traverse(scene, origin, direction, time=time)
+        throughput = Vec3.ones(n, dev)
+        result = Vec3.zeros(n, dev)
+        alive = torch.ones(n, dtype=torch.bool, device=dev)
+        last_pdf = torch.ones(n, dtype=torch.float32, device=dev)
+        last_specular = torch.ones(n, dtype=torch.bool, device=dev)
+        num_rays = zero + float(n[0])
+        num_shadow = zero
+        num_overflow = zero
+        num_box = zero
+        num_tri = zero
 
-        # --- next-segment traversal, FUSED with this bounce's shadow query;
-        # dead lanes carry t_max = 0 -> zero candidates -> (almost) no cost
-        next_cap = torch.where(survive, BIG, 0.0)
-        num_rays = num_rays + survive.to(torch.float32).sum()
-        if shadow is not None:
-            nee_c, shadow_rays, shadow_cap = shadow
-            cat = lambda a, b: torch.cat([a, b])
-            catv = lambda a, b: Vec3(cat(a.x, b.x), cat(a.y, b.y), cat(a.z, b.z))
-            nn = new_origin.x.shape[0]
-            ah_mask = torch.cat([torch.zeros(nn, dtype=torch.bool, device=dev),
-                                 torch.ones(shadow_cap.shape[0], dtype=torch.bool, device=dev)])
-            mhits = scene_traverse(scene, catv(new_origin, shadow_rays.origin),
-                                   catv(new_dir, shadow_rays.dir), t_max=cat(next_cap, shadow_cap),
-                                   time=None if time is None else cat(time, time), any_hit=ah_mask)
-            hits_next = _take(mhits, slice(None, nn))
-            occluded = mhits.t[nn:] < shadow_cap
-            num_overflow = num_overflow + ((shadow_cap > 0.0) & mhits.overflow[nn:]).to(torch.float32).sum()
-            nee_w = ((shadow_cap > 0.0) & (~occluded)).to(torch.float32)
-            result = result + throughput_pre * nee_c * (nee_w * survive_pre.to(torch.float32))
-        else:
-            hits_next = scene_traverse(scene, new_origin, new_dir, t_max=next_cap, time=time)
+        # the final step only resolves the last segment's miss / light hit
+        for depth in range(params.max_depth + 1):
+            with span("integrator.bounce", depth=depth):
+                if params.count_traversal:
+                    bt, tt = scene_traversal_cost(scene, origin, direction, time=time)
+                    live = alive.to(torch.float32)
+                    num_box = num_box + (bt * live).sum()
+                    num_tri = num_tri + (tt * live).sum()
+                num_overflow = num_overflow + (alive & hits.overflow).to(torch.float32).sum()
+                with span("integrator.shading"):
+                    miss = hits.t >= BIG * 0.5
+                    hits = hits._replace(t=torch.clamp(hits.t, 0.0, 1e12))
 
-        last_pdf = torch.where(survive, smp.pdf, last_pdf)
-        last_specular = torch.where(survive, smp.specular, last_specular)
-        origin, direction, hits, alive = new_origin, new_dir, hits_next, survive
+                    # --- miss: global (infinite) lights
+                    bg = _eval_global_lights(scene, meta, direction, last_pdf, last_specular, depth, pick_prob,
+                                             use_mis_weights=params.mis)
+                    result = result + throughput * bg * (alive & miss).to(torch.float32)
 
-    return result, Counters(num_rays, num_shadow, num_overflow, num_box, num_tri)
+                    # --- shading frame at the hit
+                    frame = apply_normal_map(scene, scene_hit_frame(scene, hits, origin, direction, time=time))
+
+                    # --- direct light hit
+                    hit_light = alive & (~miss) & (frame.light_id >= 0)
+                    l_hit = gather_light(scene.lights, torch.clamp_min(frame.light_id, 0))
+                    cos_at_light = dot(frame.normal, -direction)
+                    l_visible = cos_at_light > 1e-7
+                    direct_pdf_a = 1.0 / torch.clamp_min(l_hit.area, 1e-8)
+                    direct_pdf_w = pdf_area_to_solid_angle(direct_pdf_a, hits.t, cos_at_light)
+                    # sphere lights: NEE samples the subtended cone
+                    cos_max, _, outside_s = sphere_cone_cos_max(l_hit.trans, l_hit.shape_param.x, origin)
+                    is_sphere_area = (l_hit.kind == LIGHT_AREA) & (l_hit.shape_kind == SHAPE_SPHERE)
+                    direct_pdf_w = torch.where(is_sphere_area & outside_s, sphere_cap_pdf(cos_max), direct_pdf_w)
+                    # rect lights: NEE samples the spherical quad, pdf 1/S
+                    hx_r, hy_r = l_hit.shape_param.x, l_hit.shape_param.y
+                    corner = l_hit.rot.to_world(Vec3(-hx_r, -hy_r, torch.zeros_like(hx_r))) + l_hit.trans
+                    quad = spherical_quad_prepare(corner, l_hit.rot.r0 * (2.0 * hx_r), l_hit.rot.r1 * (2.0 * hy_r),
+                                                  origin)
+                    is_rect_area = (l_hit.kind == LIGHT_AREA) & (l_hit.shape_kind == SHAPE_RECT)
+                    direct_pdf_w = torch.where(is_rect_area, 1.0 / quad[-1], direct_pdf_w)
+                    if params.mis and depth > 0:
+                        w_light = torch.where(~last_specular, _combine_mis(last_pdf, direct_pdf_w * pick_prob), 1.0)
+                    else:
+                        w_light = 1.0
+                    m_light = (hit_light & l_visible).to(torch.float32)
+                    result = result + throughput * l_hit.color * (w_light * m_light)
+
+                    # --- surviving shading lanes
+                    survive = alive & (~miss) & (~hit_light)
+                    mp = resolve_material(scene, frame.material_id, frame.tex_u, frame.tex_v,
+                                          wavelength=wavelength, position=frame.position)
+                    result = result + throughput * mp.emission * survive.to(torch.float32)
+                    wo_local = world_to_local(-direction, frame.tangent, frame.bitangent, frame.normal)
+
+                    is_last = depth >= params.max_depth
+                    # NEE applies with the PRE-RR throughput and mask
+                    survive_pre, throughput_pre = survive, throughput
+                    shadow = None
+                    if fused_shadow:
+                        nee_c, shadow_rays, shadow_cap, n_sh, stream = _sample_lights_nee(
+                            scene, meta, params, frame, mp, wo_local, pick_prob, is_last, stream,
+                            time=time, active=survive, defer=True)
+                        shadow = (nee_c, shadow_rays, shadow_cap)
+                        num_shadow = num_shadow + n_sh
+                    elif params.mis:
+                        nee, n_sh, n_sh_ovf, stream = _sample_lights_nee(
+                            scene, meta, params, frame, mp, wo_local, pick_prob, is_last, stream, time=time,
+                            active=survive)
+                        num_shadow = num_shadow + n_sh
+                        num_overflow = num_overflow + n_sh_ovf
+                        result = result + throughput * nee * survive.to(torch.float32)
+
+                    # --- depth cap
+                    if depth >= params.max_depth:
+                        survive = torch.zeros_like(survive)
+
+                    # --- Russian roulette
+                    u_rr, stream = next_1d(stream)
+                    threshold = 0.125 + 0.875 * clip(max_component(mp.base_color), 0.0, 1.0)
+                    if depth >= params.min_rr_depth:
+                        survive = survive & ~(u_rr > threshold)
+                        throughput = throughput * torch.where(survive, 1.0 / torch.clamp_min(threshold, 1e-6), 1.0)
+
+                    # --- BSDF sampling
+                    u1, u2, u3, stream = next_3d(stream)
+                    smp = bsdf_ops.sample(mp, wo_local, u1, u2, u3)
+                    survive = survive & smp.valid
+                    wi_world = local_to_world(smp.wi, frame.tangent, frame.bitangent, frame.normal)
+                    throughput = throughput * vwhere(survive, smp.weight, Vec3.ones(n, dev))
+                    survive = survive & (max_component(throughput) > 1e-7)
+
+                    # --- the hero wavelength collapses at the first dispersive scatter:
+                    # the throughput takes its CIE -> RGB weight once
+                    if params.spectral:
+                        collapse = survive & mp.dispersive & (~dispersed)
+                        throughput = vwhere(collapse, throughput * Vec3(*rgb_resolve(wavelength)), throughput)
+                        dispersed = dispersed | (survive & mp.dispersive)
+
+                    new_origin = vwhere(survive, frame.position + wi_world * RAY_OFFSET, origin)
+                    new_dir = vwhere(survive, wi_world, direction)
+
+                # --- next-segment traversal, FUSED with this bounce's shadow query;
+                # dead lanes carry t_max = 0 -> zero candidates -> (almost) no cost
+                next_cap = torch.where(survive, BIG, 0.0)
+                num_rays = num_rays + survive.to(torch.float32).sum()
+                if shadow is not None:
+                    nee_c, shadow_rays, shadow_cap = shadow
+                    cat = lambda a, b: torch.cat([a, b])
+                    catv = lambda a, b: Vec3(cat(a.x, b.x), cat(a.y, b.y), cat(a.z, b.z))
+                    nn = new_origin.x.shape[0]
+                    ah_mask = torch.cat([torch.zeros(nn, dtype=torch.bool, device=dev),
+                                         torch.ones(shadow_cap.shape[0], dtype=torch.bool, device=dev)])
+                    mhits = scene_traverse(scene, catv(new_origin, shadow_rays.origin),
+                                           catv(new_dir, shadow_rays.dir), t_max=cat(next_cap, shadow_cap),
+                                           time=None if time is None else cat(time, time), any_hit=ah_mask)
+                    hits_next = _take(mhits, slice(None, nn))
+                    occluded = mhits.t[nn:] < shadow_cap
+                    num_overflow = num_overflow + ((shadow_cap > 0.0) & mhits.overflow[nn:]).to(torch.float32).sum()
+                    nee_w = ((shadow_cap > 0.0) & (~occluded)).to(torch.float32)
+                    result = result + throughput_pre * nee_c * (nee_w * survive_pre.to(torch.float32))
+                else:
+                    hits_next = scene_traverse(scene, new_origin, new_dir, t_max=next_cap, time=time)
+
+                last_pdf = torch.where(survive, smp.pdf, last_pdf)
+                last_specular = torch.where(survive, smp.specular, last_specular)
+                origin, direction, hits, alive = new_origin, new_dir, hits_next, survive
+
+        return result, Counters(num_rays, num_shadow, num_overflow, num_box, num_tri)

@@ -34,6 +34,7 @@ from ..ops.textures import AtlasBuilder, FILTER_BILINEAR_SMOOTHSTEP
 from ..scene import types as T
 from ..scene.build import LightDesc, MaterialDesc, SceneBuilder
 from ..scene.camera import make_camera
+from ..utils.profiler import span
 
 _SHAPE_KINDS = {"plane": T.SHAPE_RECT, "rect": T.SHAPE_RECT, "sphere": T.SHAPE_SPHERE, "box": T.SHAPE_BOX}
 
@@ -309,17 +310,23 @@ def load_scene(path: str, data_path: str | None = None, aspect: float = 1.0,
     root for texture and mesh paths; defaults to the scene file's directory.
     ``strict``: a texture file that is not found raises instead of becoming
     a white placeholder."""
-    with open(path) as f:
-        doc = json.load(f)
-    data_path = data_path or os.path.dirname(os.path.abspath(path))
+    with span("load.scene", path=os.path.basename(path)):
+        return _load_scene(path, data_path, aspect, strict, device)
 
-    builder = SceneBuilder()
-    atlas_builder, tex_names, missing0 = _parse_textures(doc, data_path, strict)
-    tex = _TexResolver(atlas_builder, tex_names, data_path, strict)
-    tex.missing.extend(missing0)
-    _parse_materials(doc, builder, tex)
-    _parse_objects(doc, builder, data_path)
-    _parse_lights(doc, builder, tex)
+
+def _load_scene(path, data_path, aspect, strict, device):
+    with span("load.parse"):
+        with open(path) as f:
+            doc = json.load(f)
+        data_path = data_path or os.path.dirname(os.path.abspath(path))
+
+        builder = SceneBuilder()
+        atlas_builder, tex_names, missing0 = _parse_textures(doc, data_path, strict)
+        tex = _TexResolver(atlas_builder, tex_names, data_path, strict)
+        tex.missing.extend(missing0)
+        _parse_materials(doc, builder, tex)
+        _parse_objects(doc, builder, data_path)
+        _parse_lights(doc, builder, tex)
     if tex.missing:
         warnings.warn(
             f"{path}: {len(tex.missing)} texture file(s) not found, using white "

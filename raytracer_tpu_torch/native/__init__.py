@@ -18,6 +18,8 @@ import os
 import subprocess
 import threading
 
+from ..utils.profiler import span
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(os.path.dirname(_DIR), "_build")
 CXX_FLAGS = ("-O3", "-ffp-contract=off", "-shared", "-fPIC")
@@ -36,17 +38,18 @@ def load_library(name: str) -> ctypes.CDLL:
         with open(src, "rb") as f:
             digest = hashlib.sha1(f.read() + " ".join(CXX_FLAGS).encode()).hexdigest()[:12]
         out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
-        if not os.path.exists(out):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{out}.{os.getpid()}.tmp"
-            try:
-                res = subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, src],
-                                     capture_output=True, text=True, timeout=300)
-            except (OSError, subprocess.TimeoutExpired) as e:
-                raise RuntimeError(f"g++ could not build {src}: {e}") from e
-            if res.returncode != 0:
-                raise RuntimeError(f"g++ failed for {src}:\n{res.stderr[-4000:]}")
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(out)
+        with span("build." + name, built=not os.path.exists(out)):
+            if not os.path.exists(out):
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                tmp = f"{out}.{os.getpid()}.tmp"
+                try:
+                    res = subprocess.run(["g++", *CXX_FLAGS, "-o", tmp, src],
+                                         capture_output=True, text=True, timeout=300)
+                except (OSError, subprocess.TimeoutExpired) as e:
+                    raise RuntimeError(f"g++ could not build {src}: {e}") from e
+                if res.returncode != 0:
+                    raise RuntimeError(f"g++ failed for {src}:\n{res.stderr[-4000:]}")
+                os.replace(tmp, out)
+            lib = ctypes.CDLL(out)
         _LIBS[name] = lib
         return lib

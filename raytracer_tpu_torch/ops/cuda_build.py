@@ -19,6 +19,8 @@ import subprocess
 import threading
 import time
 
+from ..utils.profiler import span
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -87,13 +89,15 @@ def build_kernel_libraries(names) -> None:
 
 
 def load_kernel_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu`` as a ctypes library."""
+    """Build (if needed) and load ``csrc/<name>.cu`` as a ctypes library: a
+    span ``build.<name>``, ``built`` False where a built library was reused."""
     if name not in _LIBS:
-        build_kernel_libraries([name])
-    with _LOCK:
-        if name not in _LIBS:
-            _LIBS[name] = ctypes.CDLL(_paths(name)[1])
-        return _LIBS[name]
+        with span("build." + name, built=not os.path.exists(_paths(name)[1])):
+            build_kernel_libraries([name])
+            with _LOCK:
+                if name not in _LIBS:
+                    _LIBS[name] = ctypes.CDLL(_paths(name)[1])
+    return _LIBS[name]
 
 
 def kernel_function(name: str, symbol: str, argtypes):

@@ -44,6 +44,7 @@ import torch
 from ..math.sampling import build_onb
 from ..math.vec import Vec3, normalize, where as vwhere
 from ..scene.types import Rot3, SceneData
+from ..utils.profiler import span
 from .bvh_traverse import bvh_any_hit, bvh_closest_hit, eval_tri_frame
 from .cluster_traverse import cluster_any_hit, cluster_closest_hit
 from .intersect import BIG, Hits, PrimFrame, eval_prim_frame, intersect_prims, merge_frames
@@ -164,11 +165,17 @@ def scene_traverse(scene: SceneData, origin: Vec3, direction: Vec3, t_max=None, 
     an occlusion answer (shadow rays in a fused wavefront) — under wave2
     their mesh query keeps any-hit early exit (t collapses to 0 on the
     first hit)."""
+    with span("traverse"):
+        return _traverse(scene, origin, direction, t_max, time, any_hit)
+
+
+def _traverse(scene: SceneData, origin: Vec3, direction: Vec3, t_max, time, any_hit) -> Hits:
     n = origin.x.shape
     dev = origin.x.device
     if t_max is None:
         t_max = torch.full(n, BIG, dtype=torch.float32, device=dev)
-    t_p, pid = intersect_prims(scene.prims, origin, direction, t_max, time)
+    with span("traverse.prims"):
+        t_p, pid = intersect_prims(scene.prims, origin, direction, t_max, time)
     mode = _resolved_mode(scene)
     z = torch.zeros(n, dtype=torch.float32, device=dev)
     best = {"t": t_p, "prim": pid, "tri": torch.full(n, -1, dtype=torch.int32, device=dev), "u": z, "v": z,
@@ -194,10 +201,11 @@ def scene_traverse(scene: SceneData, origin: Vec3, direction: Vec3, t_max=None, 
         return torch.where(any_hit, -cap, cap) if any_hit is not None else cap
 
     if scene.tris is not None and scene.clusters is not None:
-        t_t, tid, tu, tv, ovf, attr = _cs_closest(mode, scene.clusters, scene.bvh, scene.tris, origin,
-                                                  direction, signed(torch.minimum(t_p, t_max)))
-        overflow = overflow | ovf
-        fold(t_t, tid, tu, tv, -1, attr)
+        with span("traverse.mesh"):
+            t_t, tid, tu, tv, ovf, attr = _cs_closest(mode, scene.clusters, scene.bvh, scene.tris, origin,
+                                                      direction, signed(torch.minimum(t_p, t_max)))
+            overflow = overflow | ovf
+            fold(t_t, tid, tu, tv, -1, attr)
     if scene.instances is not None:
         # two-level traversal: each instance's shared mesh, traced in its
         # object space against the best t so far; any-hit lanes never past
@@ -207,15 +215,17 @@ def scene_traverse(scene: SceneData, origin: Vec3, direction: Vec3, t_max=None, 
         # the reference's cap, so the ray counters agree with it.  Under
         # motion blur each lane meets the instance at its own time.)
         inst_mode = "wave2" if mode == "bvh" else mode  # instanced meshes keep no BVH: the auto engine
-        o_w, d_w = _detached(origin, direction)
-        for i, mid in enumerate(scene.instances.mesh_ids):
-            geom = scene.mesh_geoms[mid]
-            o_l, d_l = _instance_local_ray(scene, i, o_w, d_w, time)
-            cap = best["t"] if any_hit is None else torch.where(any_hit, torch.minimum(best["t"], t_max), best["t"])
-            t_t, tid, tu, tv, ovf, attr = _cs_closest(inst_mode, geom.clusters, None, geom.tris, o_l, d_l,
-                                                      signed(cap))
-            overflow = overflow | ovf
-            fold(t_t, tid, tu, tv, i, attr)
+        with span("traverse.instances"):
+            o_w, d_w = _detached(origin, direction)
+            for i, mid in enumerate(scene.instances.mesh_ids):
+                geom = scene.mesh_geoms[mid]
+                o_l, d_l = _instance_local_ray(scene, i, o_w, d_w, time)
+                cap = best["t"] if any_hit is None else torch.where(any_hit, torch.minimum(best["t"], t_max),
+                                                                    best["t"])
+                t_t, tid, tu, tv, ovf, attr = _cs_closest(inst_mode, geom.clusters, None, geom.tris, o_l, d_l,
+                                                          signed(cap))
+                overflow = overflow | ovf
+                fold(t_t, tid, tu, tv, i, attr)
 
     has_mesh = (scene.tris is not None and scene.clusters is not None) or scene.instances is not None
     return Hits(t=best["t"], prim_id=best["prim"], tri_id=best["tri"], u=best["u"], v=best["v"],
@@ -331,24 +341,32 @@ def scene_occluded(scene: SceneData, origin: Vec3, direction: Vec3, t_max, time=
     """Any-hit shadow query at each ray's shutter ``time`` (None = static).
     Returns (occluded, overflow): ``overflow`` marks shadow rays whose mesh
     query the backend may have truncated."""
+    with span("traverse", occlusion=True):
+        return _occluded(scene, origin, direction, t_max, time)
+
+
+def _occluded(scene: SceneData, origin: Vec3, direction: Vec3, t_max, time):
     n = origin.x.shape
-    t_p, _ = intersect_prims(scene.prims, origin, direction, t_max, time)
+    with span("traverse.prims"):
+        t_p, _ = intersect_prims(scene.prims, origin, direction, t_max, time)
     occ = t_p < t_max
     overflow = torch.zeros(n, dtype=torch.bool, device=origin.x.device)
     mode = _resolved_mode(scene)
     if scene.tris is not None and scene.clusters is not None:
-        mesh_occ, ovf = _cs_occluded(mode, scene.clusters, scene.bvh, scene.tris, origin, direction, t_max)
-        occ = occ | mesh_occ
-        overflow = overflow | ovf
-    if scene.instances is not None:
-        inst_mode = "wave2" if mode == "bvh" else mode
-        o_w, d_w = _detached(origin, direction)
-        for i, mid in enumerate(scene.instances.mesh_ids):
-            geom = scene.mesh_geoms[mid]
-            o_l, d_l = _instance_local_ray(scene, i, o_w, d_w, time)
-            # already-occluded rays query with limit 0 (the early-out analogue)
-            lim = torch.where(occ, 0.0, t_max * torch.ones_like(origin.x))
-            mesh_occ, ovf = _cs_occluded(inst_mode, geom.clusters, None, geom.tris, o_l, d_l, lim)
+        with span("traverse.mesh"):
+            mesh_occ, ovf = _cs_occluded(mode, scene.clusters, scene.bvh, scene.tris, origin, direction, t_max)
             occ = occ | mesh_occ
             overflow = overflow | ovf
+    if scene.instances is not None:
+        inst_mode = "wave2" if mode == "bvh" else mode
+        with span("traverse.instances"):
+            o_w, d_w = _detached(origin, direction)
+            for i, mid in enumerate(scene.instances.mesh_ids):
+                geom = scene.mesh_geoms[mid]
+                o_l, d_l = _instance_local_ray(scene, i, o_w, d_w, time)
+                # already-occluded rays query with limit 0 (the early-out analogue)
+                lim = torch.where(occ, 0.0, t_max * torch.ones_like(origin.x))
+                mesh_occ, ovf = _cs_occluded(inst_mode, geom.clusters, None, geom.tris, o_l, d_l, lim)
+                occ = occ | mesh_occ
+                overflow = overflow | ovf
     return occ, overflow

@@ -52,6 +52,7 @@ import torch
 from ..math.vec import Vec3
 from ..scene.clusters import SUB_PER_SUPER, ClusterSet
 from ..utils.logger import log_info, log_warning
+from ..utils.profiler import count, count_device, host_sync, span, tracing
 from .cluster_traverse import slab_inv as _inv
 from .intersect import BIG
 
@@ -263,6 +264,9 @@ def _pair_join(cs_set: ClusterSet, cand, ox, oy, oz, dx, dy, dz, tl) -> PairJoin
     gap_start = d_c[:cs] + len_c
     f = -(-(cs * (CHUNK - 1)) // CHUNK) * CHUNK  # filler budget (CHUNK multiple)
     d_len = p_pad + f
+    if tracing():  # slots handed to the sort, the gathers and the kernel, and the pairs among them
+        count("wave2.pair_slots_sent", d_len)
+        count_device("wave2.pair_slots_real", start[cs])
     jj = _arange(CHUNK - 1, sk)[None, :]
     fill_key = torch.where(jj < pad_c[:, None], gap_start[:, None] + jj, 2 ** 30).reshape(-1)
     fill_key = torch.cat([fill_key, fill_key.new_full((f - fill_key.shape[0],), 2 ** 30)])
@@ -440,57 +444,68 @@ def _round(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tl, cursor, kc: int, any_
     n = ox.shape[0]
     cs = cs_set.num_supers
     ah_ray = tl < 0.0
-    if ftb:
-        cand, next_t, new_key = _p1_extract_ftb(cs_set, ox, oy, oz, dx, dy, dz, tl, cursor, kc)
-    else:
-        cand, remaining = _p1_extract(cs_set, ox, oy, oz, dx, dy, dz, tl, cursor, kc)
-    join = _pair_join(cs_set, cand, ox, oy, oz, dx, dy, dz, tl)
-    if ablation_switch("RT_WAVE2_SKIP_KERNEL"):
-        # the reference's stand-in: every chunk "processed, no hit", so the
-        # sort-join's bill shows without the kernel's
-        tla = torch.abs(join.pairs[6])
-        outs = (tla, torch.full_like(tla, -1, dtype=torch.int32), torch.zeros_like(tla), torch.zeros_like(tla),
-                (tla > 0.0).to(torch.int32))
-    else:
-        outs = mt_chunks(join.block_cluster, cs_set.super_geom, cs_set.super_sbox, *join.pairs,
-                         any_hit=any_hit)
+    with span("wave2.extract"):
+        if ftb:
+            cand, next_t, new_key = _p1_extract_ftb(cs_set, ox, oy, oz, dx, dy, dz, tl, cursor, kc)
+        else:
+            cand, remaining = _p1_extract(cs_set, ox, oy, oz, dx, dy, dz, tl, cursor, kc)
+    with span("wave2.join"):
+        join = _pair_join(cs_set, cand, ox, oy, oz, dx, dy, dz, tl)
+    with span("wave2.mt"):
+        if ablation_switch("RT_WAVE2_SKIP_KERNEL"):
+            # the reference's stand-in: every chunk "processed, no hit", so the
+            # sort-join's bill shows without the kernel's
+            tla = torch.abs(join.pairs[6])
+            outs = (tla, torch.full_like(tla, -1, dtype=torch.int32), torch.zeros_like(tla), torch.zeros_like(tla),
+                    (tla > 0.0).to(torch.int32))
+        else:
+            outs = mt_chunks(join.block_cluster, cs_set.super_geom, cs_set.super_sbox, *join.pairs,
+                             any_hit=any_hit)
     STATS["rounds"] += 1
     STATS["pair_slots"] += n * kc
-    # back to ray-major pair order (pads and fillers carry idx >= p -> tail)
-    _, t_p, tri_p, u_p, v_p, done_p = _stable_sort(join.fidx, *(o.reshape(-1) for o in outs))
-    p = n * kc
-    t_p, tri_p, u_p, v_p, done_p = (x[:p].reshape(n, kc) for x in (t_p, tri_p, u_p, v_p, done_p))
+    with span("wave2.select"):
+        # back to ray-major pair order (pads and fillers carry idx >= p -> tail)
+        _, t_p, tri_p, u_p, v_p, done_p = _stable_sort(join.fidx, *(o.reshape(-1) for o in outs))
+        p = n * kc
+        t_p, tri_p, u_p, v_p, done_p = (x[:p].reshape(n, kc) for x in (t_p, tri_p, u_p, v_p, done_p))
 
-    # dense winner select: min t, ties to the lowest tri id
-    slot_valid = cand < cs
-    hit = slot_valid & (done_p > 0) & (tri_p >= 0)
-    tkey = torch.where(hit, t_p, float("inf"))
-    best_t = tkey.amin(1)
-    won = tkey == best_t[:, None]
-    best_tri = torch.where(won, tri_p, 2 ** 31 - 1).amin(1)
-    final = won & (tri_p == best_tri[:, None])
-    got_hit = torch.isfinite(best_t)
-    best_u = torch.where(got_hit, torch.where(final, u_p, float("-inf")).amax(1), 0.0)
-    best_v = torch.where(got_hit, torch.where(final, v_p, float("-inf")).amax(1), 0.0)
-    best_tri = torch.where(got_hit, best_tri, -1)
-    t_round = torch.where(got_hit, best_t, torch.abs(tl))
+        # dense winner select: min t, ties to the lowest tri id
+        slot_valid = cand < cs
+        hit = slot_valid & (done_p > 0) & (tri_p >= 0)
+        tkey = torch.where(hit, t_p, float("inf"))
+        best_t = tkey.amin(1)
+        won = tkey == best_t[:, None]
+        best_tri = torch.where(won, tri_p, 2 ** 31 - 1).amin(1)
+        final = won & (tri_p == best_tri[:, None])
+        got_hit = torch.isfinite(best_t)
+        best_u = torch.where(got_hit, torch.where(final, u_p, float("-inf")).amax(1), 0.0)
+        best_v = torch.where(got_hit, torch.where(final, v_p, float("-inf")).amax(1), 0.0)
+        best_tri = torch.where(got_hit, best_tri, -1)
+        t_round = torch.where(got_hit, best_t, torch.abs(tl))
 
-    unproc = slot_valid & (done_p == 0)
-    any_unproc = unproc.any(1)
-    if ftb:
-        # no slot is left unprocessed (runs are filler-padded to whole
-        # chunks); if one were, the ray would retry from its cursor
-        new_cursor = torch.where(any_unproc, cursor, new_key)
-        unresolved = any_unproc | (next_t < t_round)
-    else:
-        min_unproc = torch.where(unproc, cand, cs + 1).amin(1)
-        max_extracted = torch.where(slot_valid, cand, -1).amax(1)
-        new_cursor = torch.where(any_unproc, min_unproc - 1, torch.maximum(max_extracted, cursor))
-        unresolved = any_unproc | (remaining > 0)
-    if any_hit:
-        unresolved = unresolved & (best_tri < 0)
-    unresolved = unresolved & ~(ah_ray & (best_tri >= 0))
-    return t_round, best_tri, best_u, best_v, new_cursor, unresolved
+        unproc = slot_valid & (done_p == 0)
+        any_unproc = unproc.any(1)
+        if ftb:
+            # no slot is left unprocessed (runs are filler-padded to whole
+            # chunks); if one were, the ray would retry from its cursor
+            new_cursor = torch.where(any_unproc, cursor, new_key)
+            unresolved = any_unproc | (next_t < t_round)
+        else:
+            min_unproc = torch.where(unproc, cand, cs + 1).amin(1)
+            max_extracted = torch.where(slot_valid, cand, -1).amax(1)
+            new_cursor = torch.where(any_unproc, min_unproc - 1, torch.maximum(max_extracted, cursor))
+            unresolved = any_unproc | (remaining > 0)
+        if any_hit:
+            unresolved = unresolved & (best_tri < 0)
+        unresolved = unresolved & ~(ah_ray & (best_tri >= 0))
+        return t_round, best_tri, best_u, best_v, new_cursor, unresolved
+
+
+def _masked(a, mask):
+    """``a[mask]``: a boolean-mask index, whose ``nonzero`` reads the mask's
+    count on the host."""
+    with host_sync("wave2.compact_mask"):
+        return a[mask]
 
 
 def _window_trace(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tm, kc: int, any_hit: bool, max_iters: int,
@@ -500,30 +515,37 @@ def _window_trace(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tm, kc: int, any_h
     n = ox.shape[0]
     STATS["windows"] += 1
     cursor0 = torch.full((n,), -1, dtype=torch.int32, device=ox.device)
-    t, tri, u, v, cur, unres = _round(cs_set, ox, oy, oz, dx, dy, dz, tm, cursor0, kc, any_hit, ftb)
+    with span("wave2.round", continuation=0):
+        t, tri, u, v, cur, unres = _round(cs_set, ox, oy, oz, dx, dy, dz, tm, cursor0, kc, any_hit, ftb)
     nsub = min(NSUB, n)
     iters = 0
     for _ in range(max_iters):
         STATS["host_syncs"] += 1  # the check below: one host sync per continuation round
-        if not bool(unres.any()):
+        with host_sync("wave2.unresolved"):
+            more = bool(unres.any())
+        if not more:
             break
         iters += 1
-        # compact up to nsub unresolved rays (ascending index, stable)
-        sel = torch.sort((~unres).to(torch.int32), stable=True).indices[:nsub]
-        live = unres[sel]
-        g = lambda a: a[sel]
-        cap = torch.where(live, torch.where(g(tm) < 0.0, -g(t), g(t)), 0.0)
-        t_r, tri_r, u_r, v_r, cur_r, unres_r = _round(
-            cs_set, g(ox), g(oy), g(oz), g(dx), g(dy), g(dz), cap, g(cur), kc, any_hit, ftb)
-        improved = live & (t_r < g(t))
-        idx = sel[live]  # writes for dead lanes are dropped
-        upd = lambda a, new: a.index_copy_(0, idx, torch.where(improved, new, g(a))[live])
-        upd(u, u_r)
-        upd(v, v_r)
-        upd(tri, tri_r)
-        upd(t, t_r)
-        cur.index_copy_(0, idx, cur_r[live])
-        unres.index_copy_(0, idx, (live & unres_r)[live])
+        with span("wave2.compact"):
+            # compact up to nsub unresolved rays (ascending index, stable)
+            sel = torch.sort((~unres).to(torch.int32), stable=True).indices[:nsub]
+            live = unres[sel]
+            g = lambda a: a[sel]
+            cap = torch.where(live, torch.where(g(tm) < 0.0, -g(t), g(t)), 0.0)
+        with span("wave2.round", continuation=iters):
+            t_r, tri_r, u_r, v_r, cur_r, unres_r = _round(
+                cs_set, g(ox), g(oy), g(oz), g(dx), g(dy), g(dz), cap, g(cur), kc, any_hit, ftb)
+        with span("wave2.compact"):
+            improved = live & (t_r < g(t))
+            on_live = lambda a: _masked(a, live)
+            idx = on_live(sel)  # writes for dead lanes are dropped
+            upd = lambda a, new: a.index_copy_(0, idx, on_live(torch.where(improved, new, g(a))))
+            upd(u, u_r)
+            upd(v, v_r)
+            upd(tri, tri_r)
+            upd(t, t_r)
+            cur.index_copy_(0, idx, on_live(cur_r))
+            unres.index_copy_(0, idx, on_live(live & unres_r))
     STATS["continuations"] += iters
     STATS["max_window_continuations"] = max(STATS["max_window_continuations"], iters)
     return t, tri, u, v, unres
@@ -534,16 +556,23 @@ def _wave2_trace(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tm, kc: int, any_hi
     """Full-wavefront trace: rays with work are compacted to the front with
     one stable sort and traced in windows of SUBWAVE rays, so the cost
     follows the live ray count down the bounce ladder."""
+    with span("wave2.trace", any_hit=any_hit):
+        return _windows(cs_set, ox, oy, oz, dx, dy, dz, tm, kc, any_hit, max_iters, ftb)
+
+
+def _windows(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tm, kc: int, any_hit: bool, max_iters: int, ftb: bool):
     n0 = ox.shape[0]
     s = min(SUBWAVE, -(-n0 // CHUNK) * CHUNK)
     n = -(-n0 // s) * s
     padded = lambda x, fill: torch.cat([x, x.new_full((n - n0,), fill)]) if n != n0 else x
-    wanted = padded(tm, 0.0) != 0.0
-    _, ridx, cox, coy, coz, cdx, cdy, cdz, ctm = _stable_sort(
-        (~wanted).to(torch.int32), _arange(n, ox),
-        padded(ox, 0.0), padded(oy, 0.0), padded(oz, 0.0),
-        padded(dx, 1.0), padded(dy, 0.0), padded(dz, 0.0), padded(tm, 0.0))
-    n_sub = -(-int(wanted.sum().item()) // s)  # one host sync per trace
+    with span("wave2.compact"):
+        wanted = padded(tm, 0.0) != 0.0
+        _, ridx, cox, coy, coz, cdx, cdy, cdz, ctm = _stable_sort(
+            (~wanted).to(torch.int32), _arange(n, ox),
+            padded(ox, 0.0), padded(oy, 0.0), padded(oz, 0.0),
+            padded(dx, 1.0), padded(dy, 0.0), padded(dz, 0.0), padded(tm, 0.0))
+    with host_sync("wave2.live_count"):
+        n_sub = -(-int(wanted.sum().item()) // s)  # one host sync per trace
     STATS["host_syncs"] += 1
 
     t = ctm.clone()
@@ -553,12 +582,14 @@ def _wave2_trace(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tm, kc: int, any_hi
     ovf = torch.zeros((n,), dtype=torch.bool, device=ox.device)
     for i in range(n_sub):
         w = slice(i * s, (i + 1) * s)
-        t[w], tri[w], u[w], v[w], ovf[w] = _window_trace(
-            cs_set, cox[w], coy[w], coz[w], cdx[w], cdy[w], cdz[w], ctm[w], kc, any_hit, max_iters, ftb)
+        with span("wave2.window", index=i):
+            t[w], tri[w], u[w], v[w], ovf[w] = _window_trace(
+                cs_set, cox[w], coy[w], coz[w], cdx[w], cdy[w], cdz[w], ctm[w], kc, any_hit, max_iters, ftb)
 
     # back to caller order
-    back = lambda a: torch.empty_like(a).index_copy_(0, ridx.long(), a)[:n0]
-    return back(t), back(tri), back(u), back(v), back(ovf)
+    with span("wave2.compact"):
+        back = lambda a: torch.empty_like(a).index_copy_(0, ridx.long(), a)[:n0]
+        return back(t), back(tri), back(u), back(v), back(ovf)
 
 
 def _rays(origin: Vec3, direction: Vec3, t_max):

@@ -39,6 +39,7 @@ from ..math.vec import Vec3
 from ..render.film import Film, accumulate_frame
 from ..render.renderer import ViewportParams, trace_rows
 from ..scene.types import Camera, SceneData, SceneMeta
+from ..utils.profiler import span
 
 AXIS = "tiles"
 HOST_AXIS = "hosts"
@@ -224,11 +225,15 @@ def _band_step(scene, meta, cam, target_band, pass_idx, vp, params, rows, row0):
     """The loss of the band of ``rows`` rows at ``row0`` over the GLOBAL
     pixel count, and its gradients with respect to the 7 material leaves."""
     s, flat = material_leaves(scene)
-    radiance, _ = trace_rows(s, meta, cam, pass_idx, None, vp, params, rows=rows, row0=row0)
-    img = torch.stack([c.reshape(rows, vp.width) for c in radiance], dim=-1)
-    loss = torch.sum((img - target_band) ** 2) / (vp.width * vp.height * 3)
-    # a table the image does not reach gets zeros, as jax.grad gives
-    return loss.detach(), torch.autograd.grad(loss, flat, materialize_grads=True)
+    with span("train.forward"):
+        radiance, _ = trace_rows(s, meta, cam, pass_idx, None, vp, params, rows=rows, row0=row0)
+    with span("train.loss"):
+        img = torch.stack([c.reshape(rows, vp.width) for c in radiance], dim=-1)
+        loss = torch.sum((img - target_band) ** 2) / (vp.width * vp.height * 3)
+    with span("train.backward"):
+        # a table the image does not reach gets zeros, as jax.grad gives
+        grads = torch.autograd.grad(loss, flat, materialize_grads=True)
+    return loss.detach(), grads
 
 
 def _as_tables(g):

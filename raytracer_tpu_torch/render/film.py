@@ -12,6 +12,7 @@ from typing import NamedTuple
 import torch
 
 from ..math.vec import Vec3
+from ..utils.profiler import span
 
 
 class Film(NamedTuple):
@@ -30,13 +31,14 @@ def accumulate_frame(film: Film, radiance: Vec3, use_secondary: bool) -> Film:
     """Accumulate a full-frame wavefront result (pixel-ordered, flattened);
     even passes also feed the secondary buffer."""
     h, w = film.sum.shape[:2]
-    frame = torch.stack([radiance.x.reshape(h, w), radiance.y.reshape(h, w), radiance.z.reshape(h, w)], -1)
-    return Film(
-        sum=film.sum + frame,
-        secondary_sum=film.secondary_sum + frame if use_secondary else film.secondary_sum,
-        num_passes=film.num_passes + 1,
-        num_secondary_passes=film.num_secondary_passes + int(use_secondary),
-    )
+    with span("film.accumulate"):
+        frame = torch.stack([radiance.x.reshape(h, w), radiance.y.reshape(h, w), radiance.z.reshape(h, w)], -1)
+        return Film(
+            sum=film.sum + frame,
+            secondary_sum=film.secondary_sum + frame if use_secondary else film.secondary_sum,
+            num_passes=film.num_passes + 1,
+            num_secondary_passes=film.num_secondary_passes + int(use_secondary),
+        )
 
 
 def average_radiance(film: Film) -> torch.Tensor:

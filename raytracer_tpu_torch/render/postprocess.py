@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from ..color.colorhelpers import TONEMAP_ACES, luminance, tonemap
 from ..sampler.sampler import _M32, blue_noise_table, hash_u32, u32_to_unit_float
+from ..utils.profiler import host_sync
 
 
 @dataclass(frozen=True)
@@ -85,7 +86,9 @@ def postprocess(avg: torch.Tensor, params: PostprocessParams, dither_seed: int =
 
     # exposure + color filter
     scale = np.asarray(params.color_filter, np.float32) * np.float32(2.0 ** params.exposure)
-    c = c * torch.as_tensor(scale, device=dev)
+    with host_sync("postprocess.scale"):  # a copy from host memory: the device drains first
+        scale = torch.as_tensor(scale, device=dev)
+    c = c * scale
 
     out = tonemap(c, params.tonemapper)
 
@@ -97,7 +100,8 @@ def postprocess(avg: torch.Tensor, params: PostprocessParams, dither_seed: int =
         ys = torch.arange(h, device=dev)[:, None]
         xs = torch.arange(w, device=dev)[None, :]
         if params.blue_noise_dither:
-            table = torch.as_tensor(blue_noise_table(), device=dev)  # (128, 128, 4)
+            with host_sync("postprocess.blue_noise"):
+                table = torch.as_tensor(blue_noise_table(), device=dev)  # (128, 128, 4)
             # per-seed toroidal golden-ratio offset decorrelates frames
             shift = float(np.float32(dither_seed) * np.float32(0.618034))
             noise = torch.remainder(table[ys % 128, xs % 128][..., :3] + shift, 1.0) * 2.0 - 1.0

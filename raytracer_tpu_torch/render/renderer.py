@@ -32,6 +32,7 @@ from ..sampler.sampler import (
 )
 from ..scene.camera import generate_rays
 from ..scene.types import Camera, SceneData, SceneMeta
+from ..utils.profiler import host_sync, span
 from .checkpoint import load_checkpoint, save_checkpoint
 from .film import Film, accumulate_frame, average_radiance, make_film
 from .postprocess import PostprocessParams, postprocess, to_u8
@@ -89,26 +90,31 @@ def trace_pixels(scene: SceneData, meta: SceneMeta, cam: Camera, pixel_ids: torc
     return _trace_at(scene, meta, cam, cx, cy, pixel_ids, pass_idx, halton, vp, params)
 
 
+def _seed_u32(x, dev):
+    with host_sync("frame.jitter_seed"):  # a copy from host memory: the device drains first
+        return torch.tensor(x & 0xFFFFFFFF, dtype=torch.int64, device=dev)
+
+
 def _trace_at(scene, meta, cam, cx, cy, pixel_ids, pass_idx, halton, vp, params):
     dev = cam.tan_half_fov.device
-    # per-pass Gaussian AA jitter shared by all pixels
-    u32 = lambda x: torch.tensor(x & 0xFFFFFFFF, dtype=torch.int64, device=dev)
-    u1 = u32_to_unit_float(hash_u32(u32(pass_idx * 2654435761 + vp.seed)))
-    u2 = u32_to_unit_float(hash_u32(u32(pass_idx * 0x9E3779B9 + vp.seed + 7)))
-    jx, jy = sample_gaussian2(torch.clamp_min(u1, 1e-6), u2)
-    spread = vp.anti_aliasing_spread
-    cx = cx + jx * (spread / vp.width)
-    cy = cy + jy * (spread / vp.height)
+    with span("frame.camera"):
+        # per-pass Gaussian AA jitter shared by all pixels
+        u1 = u32_to_unit_float(hash_u32(_seed_u32(pass_idx * 2654435761 + vp.seed, dev)))
+        u2 = u32_to_unit_float(hash_u32(_seed_u32(pass_idx * 0x9E3779B9 + vp.seed + 7, dev)))
+        jx, jy = sample_gaussian2(torch.clamp_min(u1, 1e-6), u2)
+        spread = vp.anti_aliasing_spread
+        cx = cx + jx * (spread / vp.width)
+        cy = cy + jy * (spread / vp.height)
 
-    blue = None
-    if halton is not None and vp.use_blue_noise:
-        blue = blue_noise_for_pixels(pixel_ids.to(torch.int64), vp.width)
-    stream = make_stream(pixel_ids.to(torch.int64), pass_idx, seed=vp.seed, halton=halton, blue=blue)
-    time = None
-    if vp.motion_blur_strength > 0.0:
-        u_t, stream = next_1d(stream)
-        time = u_t * vp.motion_blur_strength
-    rays, stream = generate_rays(cam, cx, cy, stream, time=time)
+        blue = None
+        if halton is not None and vp.use_blue_noise:
+            blue = blue_noise_for_pixels(pixel_ids.to(torch.int64), vp.width)
+        stream = make_stream(pixel_ids.to(torch.int64), pass_idx, seed=vp.seed, halton=halton, blue=blue)
+        time = None
+        if vp.motion_blur_strength > 0.0:
+            u_t, stream = next_1d(stream)
+            time = u_t * vp.motion_blur_strength
+        rays, stream = generate_rays(cam, cx, cy, stream, time=time)
     return trace_radiance(scene, meta, rays, stream, params, time=time, pass_idx=pass_idx)
 
 
@@ -118,8 +124,9 @@ def render_pass(scene: SceneData, meta: SceneMeta, cam: Camera, film: Film, pass
     """One full-frame accumulation pass.  Records no autograd graph, even
     for tables that require grad: the film accumulates across passes, and a
     graph would grow with it (differentiate ``trace_rows``)."""
-    radiance, counters = trace_rows(scene, meta, cam, pass_idx, halton, vp, params)
-    return accumulate_frame(film, radiance, use_secondary=(pass_idx % 2 == 0)), counters
+    with span("frame.pass", index=pass_idx):
+        radiance, counters = trace_rows(scene, meta, cam, pass_idx, halton, vp, params)
+        return accumulate_frame(film, radiance, use_secondary=(pass_idx % 2 == 0)), counters
 
 
 @torch.no_grad()
@@ -172,29 +179,34 @@ class Viewport:
     def render(self, n_passes: int = 1):
         """Run ``n_passes`` accumulation passes (no autograd graph:
         ``render_passes`` runs under ``torch.no_grad()``)."""
-        pass_idx = self.film.num_passes
-        halton = None
-        if self.vp_params.use_low_discrepancy:
-            halton = torch.as_tensor(
-                np.stack([halton_frame_vector(pass_idx + i) for i in range(n_passes)]), device=self.device
+        with span("frame.render", passes=n_passes):
+            pass_idx = self.film.num_passes
+            halton = None
+            if self.vp_params.use_low_discrepancy:
+                table = np.stack([halton_frame_vector(pass_idx + i) for i in range(n_passes)])
+                with host_sync("viewport.halton"):
+                    halton = torch.as_tensor(table, device=self.device)
+            self.film, counters = render_passes(
+                self.scene, self.meta, self.cam, self.film, pass_idx, halton,
+                self.vp_params, self.render_params, n_passes,
             )
-        self.film, counters = render_passes(
-            self.scene, self.meta, self.cam, self.film, pass_idx, halton,
-            self.vp_params, self.render_params, n_passes,
-        )
-        self.total_rays += float(counters.num_rays)
-        self.total_shadow_rays += float(counters.num_shadow_rays)
-        self.total_overflow += float(counters.num_overflow)
-        self.total_box_tests += float(counters.num_box_tests)
-        self.total_tri_tests += float(counters.num_tri_tests)
+            for name in ("rays", "shadow_rays", "overflow", "box_tests", "tri_tests"):
+                with host_sync("viewport.counters"):
+                    value = float(getattr(counters, "num_" + name))
+                setattr(self, "total_" + name, getattr(self, "total_" + name) + value)
         return self
 
     def radiance(self) -> np.ndarray:
-        return average_radiance(self.film).cpu().numpy()
+        with host_sync("viewport.radiance"):
+            return average_radiance(self.film).cpu().numpy()
 
     def image(self) -> np.ndarray:
-        srgb = postprocess(average_radiance(self.film), self.post_params, dither_seed=self.film.num_passes)
-        return to_u8(srgb).cpu().numpy()
+        with span("display"):
+            with span("display.post"):
+                srgb = postprocess(average_radiance(self.film), self.post_params, dither_seed=self.film.num_passes)
+                u8 = to_u8(srgb)
+            with span("display.copy"), host_sync("viewport.image"):
+                return u8.cpu().numpy()
 
     def progress(self) -> dict:
         return {

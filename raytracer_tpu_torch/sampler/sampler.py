@@ -16,6 +16,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..utils.profiler import host_sync
+
 MAX_DIMS = 64
 _M32 = 0xFFFFFFFF
 
@@ -31,7 +33,10 @@ def _u32(x, device=None) -> torch.Tensor:
     """A uint32 value as an int64 tensor (python ints are reduced mod 2^32)."""
     if isinstance(x, torch.Tensor):
         return x.to(torch.int64) & _M32
-    return torch.tensor(int(x) & _M32, dtype=torch.int64, device=device)
+    if device is None:
+        return torch.tensor(int(x) & _M32, dtype=torch.int64)
+    with host_sync("sampler.u32"):  # a copy from host memory: the device drains first
+        return torch.tensor(int(x) & _M32, dtype=torch.int64, device=device)
 
 
 def hash_u32(x) -> torch.Tensor:
@@ -100,7 +105,8 @@ def blue_noise_table() -> np.ndarray:
 
 def blue_noise_for_pixels(pixel_ids: torch.Tensor, width: int) -> torch.Tensor:
     """Each pixel's 4 blue-noise rotation values, tiled mod 128: (N, 4)."""
-    table = torch.as_tensor(blue_noise_table(), device=pixel_ids.device)
+    with host_sync("sampler.blue_noise"):
+        table = torch.as_tensor(blue_noise_table(), device=pixel_ids.device)
     px = (pixel_ids % width) % BLUE_NOISE_SIZE
     py = (pixel_ids // width) % BLUE_NOISE_SIZE
     return table[py, px]

@@ -18,6 +18,7 @@ import torch
 
 from ..math.transform import RigidTransform
 from ..math.vec import Vec3
+from ..utils.profiler import span
 from . import types as T
 
 
@@ -133,17 +134,20 @@ def _mesh_tables(tri_v, tri_n, tri_uv, tri_mat, device):
     from .bvh import build_bvh_over_triangles
     from .clusters import build_clusters
 
-    (v0, e1, e2, nrm, uv, mat), bvh = build_bvh_over_triangles(tri_v, tri_n, tri_uv, tri_mat, device=device)
+    with span("load.bvh", triangles=len(tri_v)):
+        (v0, e1, e2, nrm, uv, mat), bvh = build_bvh_over_triangles(tri_v, tri_n, tri_uv, tri_mat, device=device)
     v3 = lambda a: Vec3(_f32(a[:, 0], device), _f32(a[:, 1], device), _f32(a[:, 2], device))
-    tris = T.Triangles(
-        v0=v3(v0), e1=v3(e1), e2=v3(e2),
-        n0=v3(nrm[:, 0]), n1=v3(nrm[:, 1]), n2=v3(nrm[:, 2]),
-        uv0_u=_f32(uv[:, 0, 0], device), uv0_v=_f32(uv[:, 0, 1], device),
-        uv1_u=_f32(uv[:, 1, 0], device), uv1_v=_f32(uv[:, 1, 1], device),
-        uv2_u=_f32(uv[:, 2, 0], device), uv2_v=_f32(uv[:, 2, 1], device),
-        material_id=_i32(mat, device),
-    )
-    clusters = build_clusters(v0, e1, e2, normals=nrm, uvs=uv, material_ids=mat, device=device)
+    with span("load.upload"):
+        tris = T.Triangles(
+            v0=v3(v0), e1=v3(e1), e2=v3(e2),
+            n0=v3(nrm[:, 0]), n1=v3(nrm[:, 1]), n2=v3(nrm[:, 2]),
+            uv0_u=_f32(uv[:, 0, 0], device), uv0_v=_f32(uv[:, 0, 1], device),
+            uv1_u=_f32(uv[:, 1, 0], device), uv1_v=_f32(uv[:, 1, 1], device),
+            uv2_u=_f32(uv[:, 2, 0], device), uv2_v=_f32(uv[:, 2, 1], device),
+            material_id=_i32(mat, device),
+        )
+    with span("load.clusters"):
+        clusters = build_clusters(v0, e1, e2, normals=nrm, uvs=uv, material_ids=mat, device=device)
     return tris, bvh, clusters, (v0, e1, e2)
 
 

@@ -1,16 +1,19 @@
-"""Utility layer: logging, profiling (port of ``raytracer_tpu/utils``)."""
+"""Utility layer: logging, and the spans and counters of ``profiler``
+(port of ``raytracer_tpu/utils``)."""
 
 from .logger import log_debug, log_error, log_info, log_warning, set_level
 from .profiler import (
     collect,
-    device_trace,
-    profiled,
+    count,
+    enable,
+    host_sync,
     report,
     reset,
     scoped_timer,
+    span,
 )
 
 __all__ = [
     "log_debug", "log_info", "log_warning", "log_error", "set_level",
-    "scoped_timer", "device_trace", "profiled", "collect", "report", "reset",
+    "span", "host_sync", "count", "enable", "scoped_timer", "collect", "report", "reset",
 ]

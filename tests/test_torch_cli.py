@@ -119,4 +119,7 @@ def test_python_dash_m_lists_the_reference_renderers():
     assert res.returncode == 0
     assert "Path Tracer | Path Tracer MIS | Light Tracer | Debug" in " ".join(res.stdout.split())
     flags = lambda p: [(a.option_strings, a.dest, a.default, a.type, a.nargs) for a in p._actions]
-    assert flags(cli.build_arg_parser()) == flags(ref_cli.build_arg_parser())  # the same flags and defaults
+    port = flags(cli.build_arg_parser())
+    # the same flags and defaults, and the port's own --trace (its spans in a Chrome trace) last
+    assert port[-1] == (["--trace"], "trace", None, None, None)
+    assert port[:-1] == flags(ref_cli.build_arg_parser())

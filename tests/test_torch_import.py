@@ -106,6 +106,12 @@ NOT_PORTED = {
     ("math/vec.py", "Scalar"): None,
     # renamed: the port has no jax_ names
     ("math/distribution.py", "jax_searchsorted_rows"): "searchsorted_rows",
+    # nothing called the decorator; spans are ``span`` / ``scoped_timer``
+    ("utils/profiler.py", "profiled"): None,
+    # its record_function range put an event on the device timeline that a
+    # trace's reader counts as a device operation; a span shares the
+    # profiler's clock instead
+    ("utils/profiler.py", "device_trace"): None,
 }
 
 

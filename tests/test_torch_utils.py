@@ -2,9 +2,11 @@
 (``render/checkpoint.py``, ``Viewport.save_checkpoint`` /
 ``load_checkpoint``).
 
-- the profiler registry, the decorator, the report, ``device_trace`` in a
-  ``torch.profiler`` trace, a device profile written as a Chrome trace, and
-  the logger's levels (the port of ``tests/test_utils.py``);
+- the profiler's spans (``scoped_timer``), the report, a span recorded
+  under a ``torch.profiler`` capture without a range of its own, a device
+  profile written as a Chrome trace with the spans, and the logger's levels
+  (the port of ``tests/test_utils.py``; ``tests/test_torch_trace.py`` holds
+  the rest of the spans' tests);
 - a checkpoint resumes bit-exactly in the port, with the reference's two
   refusals (another seed, another film shape);
 - the file is the reference's format: a checkpoint of the JAX package
@@ -39,58 +41,76 @@ RTOL, ATOL = 1e-3, 1e-4
 
 class TestProfiler:
     def test_scoped_timer_collects(self):
-        from raytracer_tpu_torch.utils import collect, reset, scoped_timer
+        """``scoped_timer`` is the reference's name for a span: it records
+        only while tracing is on, and ``collect`` aggregates the buffer."""
+        from raytracer_tpu_torch.utils import collect, enable, reset, scoped_timer
 
         reset()
-        for _ in range(3):
-            with scoped_timer("unit.region"):
-                pass
+        with scoped_timer("unit.region"):
+            pass
+        assert collect() == {}
+        with enable():
+            for _ in range(3):
+                with scoped_timer("unit.region"):
+                    pass
         stats = collect()
         assert stats["unit.region"]["count"] == 3
-        assert stats["unit.region"]["total"] >= 0.0
+        assert 0.0 <= stats["unit.region"]["self"] <= stats["unit.region"]["total"]
         assert stats["unit.region"]["min"] <= stats["unit.region"]["avg"] <= stats["unit.region"]["max"]
         reset()
         assert collect() == {}
 
     def test_profiled_decorator_and_report(self):
-        from raytracer_tpu_torch.utils import collect, profiled, report, reset
+        """The decorator is gone (nothing called it); ``report`` prints the
+        spans by self time, the syncs by site and the counters."""
+        import raytracer_tpu_torch.utils.profiler as prof
+        from raytracer_tpu_torch.utils import count, enable, host_sync, report, reset, span
 
         reset()
-        assert report() == "(no profiler samples)"
-
-        @profiled("unit.fn")
-        def fn(x):
-            """doc"""
-            return x + 1
-
-        assert fn(1) == 2 and fn.__name__ == "fn" and fn.__doc__ == "doc"
-        assert collect()["unit.fn"]["count"] == 1
-        assert "unit.fn" in report()
+        assert report() == "(no spans recorded)"
+        assert not hasattr(prof, "profiled")
+        with enable():
+            with span("unit.fn"):
+                with host_sync("unit.read"):
+                    float(torch.ones(2).sum())
+            count("unit.items", 3)
+        text = report()
+        assert "unit.fn" in text and "unit.read" in text and "unit.items" in text
+        reset()
 
     def test_device_trace_is_a_profiler_range(self):
+        """``device_trace`` is gone: a span records while a ``torch.profiler``
+        capture runs, and opens no ``record_function`` range, so the trace's
+        device timeline holds no event of the program's."""
         from torch.profiler import ProfilerActivity, profile
 
-        from raytracer_tpu_torch.utils import collect, device_trace, reset
+        import raytracer_tpu_torch.utils.profiler as prof
+        from raytracer_tpu_torch.utils import collect, reset, span
 
         reset()
-        with profile(activities=[ProfilerActivity.CPU]) as prof:
-            with device_trace("unit.traced"):
+        assert not hasattr(prof, "device_trace")
+        with profile(activities=[ProfilerActivity.CPU]) as p:
+            with span("unit.traced"):
                 torch.ones(8).sum()
-        assert "unit.traced" in {e.key for e in prof.key_averages()}
+        assert "unit.traced" not in {e.key for e in p.key_averages()}
         assert collect()["unit.traced"]["count"] == 1
+        reset()
 
     def test_device_profile_writes_a_chrome_trace(self, tmp_path):
-        from raytracer_tpu_torch.utils.profiler import device_trace, start_device_profile, stop_device_profile
+        from raytracer_tpu_torch.utils.profiler import reset, span, start_device_profile, stop_device_profile
 
+        reset()
         start_device_profile(str(tmp_path / "trace"))
         with pytest.raises(RuntimeError, match="already running"):
             start_device_profile(str(tmp_path / "other"))
-        with device_trace("unit.in_file"):
+        with span("unit.in_file"):
             torch.ones(8).sum()
-        path = stop_device_profile()
-        assert path.startswith(str(tmp_path / "trace"))
+        path, ops = stop_device_profile()
+        assert path.startswith(str(tmp_path / "trace")) and ops == []  # no device on the CPU
         events = json.load(open(path))["traceEvents"]
-        assert any(e.get("name") == "unit.in_file" for e in events)
+        assert any(e.get("name") == "unit.in_file" and e.get("cat") == "program_span" for e in events)
+        assert any(e.get("cat") == "cpu_op" for e in events)
+        reset()
 
     def test_logger_levels(self, capsys):
         from raytracer_tpu_torch.utils import log_debug, log_error, log_info, log_warning, set_level
