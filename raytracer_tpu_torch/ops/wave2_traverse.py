@@ -4,11 +4,14 @@ Exact closest-hit / any-hit over a ``ClusterSet`` for a whole wavefront:
 
 0. ``_wave2_trace``: rays with work (t_max != 0) are compacted to the front
    by one stable sort and traced in windows of ``SUBWAVE`` rays.
-1. ``_p1_extract``: dense (rays x Cs) slab test against the super-cluster
-   boxes; each ray takes its ``kc`` smallest overlapped super ids above its
+1. ``_p1_extract``: slab test of every ray against every super-cluster
+   box; each ray takes its ``kc`` smallest overlapped super ids above its
    cursor, ascending (the reference bit-packs the hit matrix on the TPU's
-   matrix unit; only its result is ported).  ``_p1_extract_ftb``
-   (``RT_WAVE2_FTB=1``, front to back): each overlap gets one int32 key
+   matrix unit; only its result is ported): the hand-written CUDA kernel
+   ``csrc/wave2_extract.cu`` on the card, its plain twin
+   ``p1_extract_reference`` (dense (rays x Cs) blocks) on the CPU.
+   ``_p1_extract_ftb`` (``RT_WAVE2_FTB=1``, front to back, plain PyTorch
+   on every device): each overlap gets one int32 key
    ``(bits(t_enter) >> id_bits) << id_bits | super``, and each ray takes its
    ``kc`` least keys above its cursor key, nearest first, with a lower bound
    on the next one's entry distance for early termination.
@@ -73,6 +76,8 @@ IMAX = 2**31 - 1
 _P1_CHUNK_ELEMS = 1 << 26  # bound on one (rays x Cs) slab-test block
 # wave2_mt_launch: 15 pointers, (b2, rows, cs, k, any_hit), the stream
 MT_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+# wave2_extract_launch: 11 pointers, (n, cs, kc), the stream
+EXTRACT_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 # windows traced, rounds run (first and continuation), continuation
 # iterations, the most in one window, (ray, candidate) pair slots, host syncs
@@ -138,9 +143,10 @@ def _slab(box, ox, oy, oz, ix, iy, iz):
     return tmin, tmax
 
 
-def _p1_extract(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tl, cursor, kc: int):
-    """(N,) rays -> (cand (N, kc) ascending super ids with ``hit & id >
-    cursor``, padded with Cs; remaining (N,) = max(total - kc, 0))."""
+def p1_extract_reference(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tl, cursor, kc: int):
+    """Plain PyTorch twin of ``csrc/wave2_extract.cu``: (N,) rays -> (cand
+    (N, kc) ascending super ids with ``hit & id > cursor``, padded with Cs;
+    remaining (N,) = max(total - kc, 0))."""
     n = ox.shape[0]
     cs = cs_set.num_supers
     box = cs_set.super_box
@@ -158,6 +164,48 @@ def _p1_extract(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tl, cursor, kc: int)
         cands.append(torch.topk(ids, kc, dim=1, largest=False, sorted=True).values)
         rems.append(torch.clamp_min(hit.sum(1, dtype=torch.int32) - kc, 0))
     return torch.cat(cands), torch.cat(rems)
+
+
+def _p1_extract(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tl, cursor, kc: int):
+    """Candidate extraction (``p1_extract_reference`` says what it returns).
+    CPU tensors take the plain twin; CUDA tensors launch
+    ``csrc/wave2_extract.cu`` (counted in ``_p1_extract.launches``) or raise.
+    Counts ``wave2.box_tests`` (rays x Cs) and, for a launch,
+    ``wave2.extract_launches``."""
+    n, cs = ox.shape[0], cs_set.num_supers
+    count("wave2.box_tests", n * cs)
+    dev = ox.device
+    if dev.type == "cpu":
+        return p1_extract_reference(cs_set, ox, oy, oz, dx, dy, dz, tl, cursor, kc)
+    if dev.type != "cuda":
+        raise ValueError(f"_p1_extract: unsupported device {dev}")
+    box = cs_set.super_box
+    rays = (ox, oy, oz, dx, dy, dz, tl)
+    ins = (box, *rays, cursor)
+    ok = (
+        box.dtype == torch.float32 and tuple(box.shape) == (cs, 6) and cs > 0 and kc > 0
+        and all(a.dtype == torch.float32 and tuple(a.shape) == (n,) for a in rays)
+        and cursor.dtype == torch.int32 and tuple(cursor.shape) == (n,)
+        and all(a.device == dev and a.is_contiguous() for a in ins)
+    )
+    if not ok:
+        raise ValueError("_p1_extract: inputs do not match the kernel's dtypes, shapes, device or layout")
+    from .cuda_build import kernel_function
+
+    fn = kernel_function("wave2_extract", "wave2_extract_launch", EXTRACT_ARGTYPES)
+    # one allocation for both results: cand (n, kc), then rem (n,)
+    out = torch.empty((n * (kc + 1),), dtype=torch.int32, device=dev)
+    cand, rem = out[:n * kc].view(n, kc), out[n * kc:]
+    rc = fn(*(a.data_ptr() for a in ins), cand.data_ptr(), rem.data_ptr(), n, cs, kc,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"wave2_extract kernel launch failed: cudaError {rc}")
+    _p1_extract.launches += 1
+    count("wave2.extract_launches")
+    return cand, rem
+
+
+_p1_extract.launches = 0
 
 
 def _p1_extract_ftb(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tl, cur_key, kc: int):

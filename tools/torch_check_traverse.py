@@ -8,7 +8,8 @@ kernels (counterpart of ``tools/check_pallas.py`` and of the ``cluster``,
 Runs on the CUDA device (the kernels; it exits when there is none), or with
 ``cpu`` on the CPU at a small size (the kernels' plain versions).  Imports torch, numpy and the
 port only.  ``chip_smoke.py`` calls ``check_kernels``, ``check_engines``,
-``check_bvh_walk`` and ``bvh_against_wave2`` in its phases.
+``check_extract_kernel``, ``check_bvh_walk`` and ``bvh_against_wave2`` in
+its phases.
 """
 
 from __future__ import annotations
@@ -169,6 +170,25 @@ def cuda_ms(fn, reps=20, warmup=3):
     return float(np.median(times))
 
 
+def kernel_ms(fn, name, reps=20):
+    """Median device time (ms) of the kernels whose name holds ``name`` over
+    ``reps`` calls of ``fn``, as the profiler records them: the kernel's own
+    duration, without the host's launch latency that an event pair around
+    one call takes in with it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.duration_ns() / 1e6 for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA and name in e.name()]
+    return float(np.median(times))
+
+
 def bound_ms(n_bytes: float, n_ops: float):
     """The least time one H100 could take: the larger of the bytes over its
     memory rate and the operations over its float32 rate.  Returns
@@ -185,16 +205,16 @@ def check(cond, msg, log=print):
 
 
 class twin_engine:
-    """Within the block, the wave2 engine calls the kernel's plain twin, not
-    the kernel."""
+    """Within the block, the wave2 engine calls the kernels' plain twins
+    (extraction and Möller-Trumbore), not the kernels."""
 
     def __enter__(self):
-        self.saved = w2.mt_chunks
-        w2.mt_chunks = w2.mt_chunks_reference
+        self.saved = w2.mt_chunks, w2._p1_extract
+        w2.mt_chunks, w2._p1_extract = w2.mt_chunks_reference, w2.p1_extract_reference
         return self
 
     def __exit__(self, *exc):
-        w2.mt_chunks = self.saved
+        w2.mt_chunks, w2._p1_extract = self.saved
 
 
 class plain_kernels:
@@ -636,6 +656,136 @@ def check_wave2_kernel(cs, dev, log=print, reps=20, plain_reps=5, n_rays=w2.SUBW
     return row
 
 
+def extract_edge_rays(cs, n, rng):
+    """(n, 3) origins and directions, limits and cursors (numpy) that reach
+    the extraction's edges on the cluster set ``cs``: a quarter of the
+    origins inside a super's box (at its centre or anywhere in it), the rest
+    around the boxes; a quarter of the directions along an axis with the
+    other two components 0, -0, +-1e-13 (below the slab inverse's 1e-12
+    floor) or +-1e-12 (on it); limits closest (3e38), any-hit (negative),
+    finite, or 0 (padding); cursors -1, in the middle, Cs - 1, or anywhere
+    between."""
+    box = cs.super_box.cpu().numpy().astype(np.float64)
+    live = box[:, 0] <= box[:, 3]
+    lo, hi = box[live, :3].min(0), box[live, 3:].max(0)
+    pick = box[rng.integers(0, len(box), n)]
+    inside = pick[:, :3] + (pick[:, 3:] - pick[:, :3]) * np.where(rng.random((n, 1)) < 0.5, 0.5, rng.random((n, 3)))
+    around = lo - 0.2 * (hi - lo) + 1.4 * (hi - lo) * rng.random((n, 3))
+    o = np.where(rng.random((n, 1)) < 0.25, inside, around).astype(np.float32)
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d = d.astype(np.float32)
+    flat = rng.random(n) < 0.25
+    axis = rng.integers(0, 3, n)
+    small = np.array([0.0, -0.0, 1e-13, -1e-13, 1e-12, -1e-12], np.float32)
+    for i in np.flatnonzero(flat):
+        d[i] = small[rng.integers(0, len(small), 3)]
+        d[i, axis[i]] = rng.choice([-1.0, 1.0])
+    u = rng.random(n)
+    tl = np.where(u < 0.5, 3.0e38, np.where(u < 0.7, -rng.uniform(0.5, 20.0, n), rng.uniform(0.1, 5.0, n)))
+    tl[u > 0.9] = 0.0
+    c = rng.random(n)
+    cs_n = cs.num_supers
+    cursor = np.where(c < 0.4, -1, np.where(c < 0.6, cs_n // 2, np.where(c < 0.7, cs_n - 1,
+                                                                            rng.integers(-1, cs_n, n))))
+    return o, d, tl.astype(np.float32), cursor.astype(np.int32)
+
+
+def _extract_case(label, cs, o, d, tl, cursor, kc, log):
+    """``_p1_extract`` (on CUDA tensors the kernel) against its plain twin on
+    one input: bit-equal or exit.  Returns the twin's (cand, rem)."""
+    ro, rd = vec(o, tl.device), vec(d, tl.device)
+    got = w2._p1_extract(cs, *ro, *rd, tl, cursor, kc)
+    want = w2.p1_extract_reference(cs, *ro, *rd, tl, cursor, kc)
+    if tl.device.type == "cuda":
+        torch.cuda.synchronize()
+    log(f"extract vs twin [{label}]: rays={tl.shape[0]} Cs={cs.num_supers} kc={kc} "
+        f"candidates={int((want[0] < cs.num_supers).sum())} rays with more={int((want[1] > 0).sum())} "
+        f"cand_mismatches={int((got[0] != want[0]).sum())} rem_mismatches={int((got[1] != want[1]).sum())}")
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"wave2_extract kernel equals its twin bit for bit ({label})", log)
+    return want
+
+
+def _time_extract(label, cs, o, d, tl, cursor, kc, log, reps, plain_reps):
+    """Times ``_p1_extract`` (the kernel) and its twin on one input.  The
+    bound counts the box tests these inputs need (each ray with a limit
+    against each super above its cursor) at BOX_OPS operations, or the
+    boxes, rays and cursors read once and the outputs written once.
+    Returns the row's numbers."""
+    ro, rd = vec(o, tl.device), vec(d, tl.device)
+    args = (cs, *ro, *rd, tl, cursor, kc)
+    call_ms = cuda_ms(lambda: w2._p1_extract(*args), reps=reps)
+    ms = kernel_ms(lambda: w2._p1_extract(*args), "wave2_extract", reps=reps)
+    plain_ms = cuda_ms(lambda: w2.p1_extract_reference(*args), reps=plain_reps, warmup=1)
+    n, n_cs = tl.shape[0], cs.num_supers
+    above = n_cs - torch.clamp(cursor.to(torch.int64) + 1, 0, n_cs)
+    tests = int(torch.where(torch.abs(tl) > 0.0, above, 0).sum())
+    n_bytes = n_cs * 6 * 4 + n * (8 + kc + 1) * 4
+    n_ops = tests * BOX_OPS
+    b_ms, b_by = bound_ms(n_bytes, n_ops)
+    log(f"time [extract {label}]: kernel {ms:.4f} ms on the device ({call_ms:.4f} ms a call between two "
+        f"events), twin {plain_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by} "
+        f"({n_bytes} bytes, {tests} box tests needed of {n} x {n_cs} = {n_ops} operations; without fused "
+        f"multiply-adds {2 * n_ops / H100_F32_OPS_PER_S * 1e3:.6f} ms), {100 * b_ms / ms:.2f}% of the bound")
+    return dict(ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, rays=n, box_tests=tests)
+
+
+def check_extract_kernel(cs, o, d, dev, log=print, reps=20, plain_reps=5):
+    """The extraction kernel (``csrc/wave2_extract.cu``) against its plain
+    twin, bit-equal or exit: on the (n, 3) camera window ``o``, ``d`` of the
+    cluster set ``cs`` (closest-hit rays, cursor -1, kc = 16; timed), on
+    the continuation window that a real first round of it leaves (up to
+    ``w2.NSUB`` unresolved rays with their cursors and limits, padded as
+    ``_window_trace`` pads; timed), then untimed on ``extract_edge_rays``
+    against ``cs`` and against cluster sets of a 20k-triangle mesh at K = 8
+    (a Cs that is not a multiple of 32), a 500-triangle one (Cs below 16)
+    and a 320k-triangle one at K = 8 (Cs above the kernel's 4,096-box tile),
+    at kc 1, 4, 16 and 33 (kc = Cs where Cs is smaller).  Returns the
+    kernel table's row."""
+    import bench_mesh
+    from raytracer_tpu_torch.scene.clusters import build_clusters
+
+    o, d = (torch.as_tensor(x, dtype=torch.float32, device=dev) for x in (o, d))
+    kc = min(w2.KC, cs.num_supers)
+    n = o.shape[0]
+    tl = torch.full((n,), BIGF, dtype=torch.float32, device=dev)
+    cursor = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    row = {"name": "wave2_extract", "route": "cuda", "source": "raytracer_tpu_torch/csrc/wave2_extract.cu",
+           "replaces": "none (XLA: raytracer_tpu/ops/wave2_traverse.py:116-160)", "launches": 0,
+           "library_ms": None}
+    _extract_case("camera window", cs, o, d, tl, cursor, kc, log)
+    row["windows"] = {"camera": _time_extract("camera window", cs, o, d, tl, cursor, kc, log, reps, plain_reps)}
+
+    # a continuation window as _window_trace builds it from the first round
+    ro, rd = vec(o, dev), vec(d, dev)
+    t, _, _, _, cur, unres = w2._round(cs, *ro, *rd, tl, cursor, kc, any_hit=False)
+    nsub = min(w2.NSUB, n)
+    sel = torch.sort((~unres).to(torch.int32), stable=True).indices[:nsub]
+    live = unres[sel]
+    ctl = torch.where(live, t[sel], 0.0)
+    log(f"continuation window: {int(live.sum())} of {n} rays unresolved after the first round, {nsub} slots")
+    args = (o[sel], d[sel], ctl, cur[sel])
+    _extract_case("continuation window", cs, *args, kc, log)
+    row["windows"]["continuation"] = _time_extract("continuation window", cs, *args, kc, log, reps, plain_reps)
+    row.update(row["windows"]["camera"])
+
+    rng = np.random.default_rng(16)
+    sets = [("camera scene", cs)]
+    for n_tris, k in ((20_000, 8), (500, 8), (320_000, 8)):
+        verts, faces = bench_mesh.make_mesh(n_tris)
+        tri = verts[faces].astype(np.float32)
+        small = build_clusters(tri[:, 0], tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0], k=k, device=dev)
+        sets.append((f"{n_tris}-triangle mesh K={k}", small))
+    for label, c in sets:
+        eo, ed, etl, ecur = extract_edge_rays(c, 8192, rng)
+        eo, ed = (torch.as_tensor(x, device=dev) for x in (eo, ed))
+        etl, ecur = torch.as_tensor(etl, device=dev), torch.as_tensor(ecur, device=dev)
+        for ekc in sorted({min(k, c.num_supers) for k in (1, 4, 16, 33)}):
+            _extract_case(f"edge rays, {label}, Cs={c.num_supers}, kc={ekc}", c, eo, ed, etl, ecur, ekc, log)
+    return row
+
+
 def _bits(x):
     return x.view(torch.int32) if x.dtype == torch.float32 else x
 
@@ -814,6 +964,7 @@ def main():
     print(f"clusters: {cs.num_clusters} x {cs.tris_per_cluster}")
     if on_card:
         check_wave2_kernel(cs, dev, n_rays=n_rays)
+        check_extract_kernel(cs, *coherent_rays(n_rays), dev)
         check_kernels(cs, dev, n_coherent=4 * n_rays, n_incoherent=n_rays)
     check_engines(cs, dev, n_rays=n_rays, on_card=on_card)
     # the skip-link walk: its triangle ids are the leaf order, so the
