@@ -98,13 +98,14 @@ def _light_color(scene: SceneData, li: int) -> Vec3:
 
 def _env_radiance(scene: SceneData, li: int, direction: Vec3) -> Vec3:
     """Background color along a direction, times the light's lat-long
-    texture when the scene has textures."""
-    color = _light_color(scene, li)
-    if scene.textures is not None:
-        u, v = cartesian_to_spherical_uv(direction)
-        ids = torch.zeros_like(direction.x, dtype=torch.int32) + scene.lights.env_tex[li]
-        color = color * sample_texture_many(scene.textures, ids, u, v)
-    return color
+    texture when the scene has textures (the ``lights.env`` span)."""
+    with span("lights.env"):
+        color = _light_color(scene, li)
+        if scene.textures is not None:
+            u, v = cartesian_to_spherical_uv(direction)
+            ids = torch.zeros_like(direction.x, dtype=torch.int32) + scene.lights.env_tex[li]
+            color = color * sample_texture_many(scene.textures, ids, u, v, site="env")
+        return color
 
 
 def _eval_global_lights(scene: SceneData, meta: SceneMeta, direction: Vec3, last_pdf, last_specular,

@@ -50,37 +50,39 @@ class TextureNotFound(SceneLoadError):
 
 
 def _load_bitmap(data_path: str, rel: str) -> np.ndarray:
-    """Load a bitmap as linear float32 (H, W, 3)."""
-    path = rel if os.path.isabs(rel) else os.path.join(data_path, rel)
-    if not os.path.exists(path):
-        raise TextureNotFound(f"texture not found: {path}")
-    lower = path.lower()
-    if lower.endswith(".exr"):
-        from .exr import read_exr
+    """Load a bitmap as linear float32 (H, W, 3) (a ``load.textures``
+    span)."""
+    with span("load.textures", stage="decode", path=os.path.basename(rel)):
+        path = rel if os.path.isabs(rel) else os.path.join(data_path, rel)
+        if not os.path.exists(path):
+            raise TextureNotFound(f"texture not found: {path}")
+        lower = path.lower()
+        if lower.endswith(".exr"):
+            from .exr import read_exr
 
-        return read_exr(path)
-    img8 = None
-    if lower.endswith(".bmp"):
-        try:
-            img8 = read_bmp(path)
-        except UnsupportedBmp:
-            pass  # another BMP variant (palette, 32-bit, compressed): left to PIL
-        except ValueError as e:
-            raise SceneLoadError(f"cannot read texture: {e}") from e
-    if img8 is None:
-        try:
-            from PIL import Image
-        except ImportError as e:
-            raise SceneLoadError(f"{path}: reading this bitmap format needs PIL "
-                                 "(uncompressed 24-bit BMP and EXR do not)") from e
-        img8 = np.asarray(Image.open(path).convert("RGB"))
-    if lower.endswith(".bmp"):
-        # the reference renderer reads the BMP pixel array raw, without
-        # undoing the format's bottom-up row order, so its v axis is flipped
-        # against the authored image: flip the top-down image to match
-        img8 = img8[::-1]
-    img = np.ascontiguousarray(img8, np.float32) / np.float32(255.0)
-    return srgb_to_linear(torch.from_numpy(img)).numpy()
+            return read_exr(path)
+        img8 = None
+        if lower.endswith(".bmp"):
+            try:
+                img8 = read_bmp(path)
+            except UnsupportedBmp:
+                pass  # another BMP variant (palette, 32-bit, compressed): left to PIL
+            except ValueError as e:
+                raise SceneLoadError(f"cannot read texture: {e}") from e
+        if img8 is None:
+            try:
+                from PIL import Image
+            except ImportError as e:
+                raise SceneLoadError(f"{path}: reading this bitmap format needs PIL "
+                                     "(uncompressed 24-bit BMP and EXR do not)") from e
+            img8 = np.asarray(Image.open(path).convert("RGB"))
+        if lower.endswith(".bmp"):
+            # the reference renderer reads the BMP pixel array raw, without
+            # undoing the format's bottom-up row order, so its v axis is flipped
+            # against the authored image: flip the top-down image to match
+            img8 = img8[::-1]
+        img = np.ascontiguousarray(img8, np.float32) / np.float32(255.0)
+        return srgb_to_linear(torch.from_numpy(img)).numpy()
 
 
 def _parse_textures(doc: dict, data_path: str, strict: bool = False):
@@ -333,7 +335,8 @@ def _load_scene(path, data_path, aspect, strict, device):
             f"placeholders: {tex.missing[:3]}..."
         )
     if atlas_builder.rows:
-        builder.textures = atlas_builder.build(device)
+        with span("load.textures", stage="atlas"):
+            builder.textures = atlas_builder.build(device)
     scene, meta = builder.build(device)
 
     cam_doc = doc.get("camera", {})

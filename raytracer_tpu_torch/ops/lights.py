@@ -3,9 +3,9 @@
 
 Every light kind's Illuminate is computed masked and selected by the
 per-light kind.  A background light with a lat-long bitmap is importance
-sampled through its 2-D distribution; without one it samples the
-hemisphere about the normal.  ``emit`` samples photon emission for the
-light tracer and VCM.
+sampled through its 2-D distribution (under tracing, its sample and pdf are
+``lights.env`` spans); without one it samples the hemisphere about the
+normal.  ``emit`` samples photon emission for the light tracer and VCM.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from ..scene.types import (
     Lights,
     Rot3,
 )
+from ..utils.profiler import span
 from .bsdf import _select
 
 BIG = 3.0e38
@@ -125,21 +126,23 @@ def env_sample_direction(env, u1, u2) -> tuple[Vec3, torch.Tensor]:
     Returns (world direction, solid-angle pdf).  The (u, v) mapping matches
     ``cartesian_to_spherical_uv``, so sampled texels line up with the
     radiance fetches.  Jacobian: pdf_w = pdf_uv / (2 pi^2 sin(theta))."""
-    u, v, pdf_uv = sample_2d(env, u1, u2)
-    theta = v * math.pi
-    phi = (u - 0.5) * (2.0 * math.pi)
-    sin_t = torch.sin(theta)
-    d = Vec3(sin_t * torch.cos(phi), torch.cos(theta), sin_t * torch.sin(phi))
-    pdf_w = pdf_uv / torch.clamp_min(2.0 * math.pi * math.pi * sin_t, 1e-6)
-    return d, pdf_w
+    with span("lights.env"):
+        u, v, pdf_uv = sample_2d(env, u1, u2)
+        theta = v * math.pi
+        phi = (u - 0.5) * (2.0 * math.pi)
+        sin_t = torch.sin(theta)
+        d = Vec3(sin_t * torch.cos(phi), torch.cos(theta), sin_t * torch.sin(phi))
+        pdf_w = pdf_uv / torch.clamp_min(2.0 * math.pi * math.pi * sin_t, 1e-6)
+        return d, pdf_w
 
 
 def env_direction_pdf(env, d: Vec3) -> torch.Tensor:
     """Solid-angle pdf :func:`env_sample_direction` assigns to direction
     ``d`` (the MIS counterpart used when a BSDF-sampled ray escapes)."""
-    u, v = sampling.cartesian_to_spherical_uv(d)
-    sin_t = sqrt_rn(torch.clamp_min(1.0 - d.y * d.y, 1e-12))
-    return pdf_2d(env, u, v) / torch.clamp_min(2.0 * math.pi * math.pi * sin_t, 1e-6)
+    with span("lights.env"):
+        u, v = sampling.cartesian_to_spherical_uv(d)
+        sin_t = sqrt_rn(torch.clamp_min(1.0 - d.y * d.y, 1e-12))
+        return pdf_2d(env, u, v) / torch.clamp_min(2.0 * math.pi * math.pi * sin_t, 1e-6)
 
 
 def sphere_cone_cos_max(center: Vec3, radius, point: Vec3):

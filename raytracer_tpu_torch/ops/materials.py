@@ -44,9 +44,9 @@ def _apply_decals(scene: SceneData, position: Vec3, base_color: Vec3, roughness)
         if scene.textures is not None:
             # INVALID_ID lanes read 1.0
             tid = torch.zeros_like(u, dtype=torch.int32) + d.base_color_tex[i]
-            color = color * sample_texture_many(scene.textures, tid, u, v)
+            color = color * sample_texture_many(scene.textures, tid, u, v, site="decal")
             aid = torch.zeros_like(tid) + d.alpha_tex[i]
-            alpha_t = sample_texture_many(scene.textures, aid, u, v).x
+            alpha_t = sample_texture_many(scene.textures, aid, u, v, site="decal").x
         alpha = d.alpha_min[i] + (d.alpha_max[i] - d.alpha_min[i]) * alpha_t
         a = torch.where(inside, alpha, 0.0)
         base_color = base_color * (1.0 - a) + color * a
@@ -66,7 +66,7 @@ def apply_normal_map(scene: SceneData, frame):
     idx = torch.clamp_min(frame.material_id, 0).long()
     ntex = mats.normal_tex[idx]
     has = ntex >= 0
-    t = sample_texture_many(scene.textures, ntex, frame.tex_u, frame.tex_v)
+    t = sample_texture_many(scene.textures, ntex, frame.tex_u, frame.tex_v, site="normal")
     nx = 2.0 * t.x - 1.0
     ny = 2.0 * t.y - 1.0
     nz = sqrt_rn(torch.clamp_min(1.0 - nx * nx - ny * ny, 1e-12))

@@ -8,9 +8,14 @@
 - mix: lerp(texA, texB, weightTex.x) with one level of nesting.
 
 Texture id INVALID_ID resolves to constant 1.0 (a parameter is
-``constant * texture``).  The integer hash works on uint32 values held in
-int64 tensors, as ``sampler/sampler.py`` does, and is bit-equal to the
-reference's; the float math follows the reference's order of operations.
+``constant * texture``).  Every lane is evaluated, whatever its id; under
+tracing each call is a ``textures`` span (``site``: ``material``,
+``normal``, ``env`` or ``decal``) and counts, by site, its lanes
+(``textures.lanes.<site>``) and, on the device, those with a texture
+(``textures.lanes_textured.<site>``).
+The integer hash works on uint32 values held in int64 tensors, as
+``sampler/sampler.py`` does, and is bit-equal to the reference's; the float
+math follows the reference's order of operations.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from ..scene.types import (
     TEX_NOISE,
     TextureAtlas,
 )
+from ..utils.profiler import count, count_device, span, tracing
 
 FILTER_NEAREST = 0
 FILTER_BILINEAR = 1
@@ -301,26 +307,31 @@ def _eval_non_mix(atlas: TextureAtlas, tid, u, v) -> Vec3:
     return out
 
 
-def sample_texture_many(atlas: TextureAtlas, tex_ids, u, v) -> Vec3:
-    """Per-ray texture sample over mixed kinds; INVALID_ID lanes get 1.0."""
-    valid = tex_ids != INVALID_ID
-    tid = torch.clamp_min(tex_ids, 0).long()
-    out = _eval_non_mix(atlas, tid, u, v)
-    if TEX_MIX in atlas.kinds_present:
-        # one level of mix nesting
-        is_mix = atlas.kind[tid] == TEX_MIX
-        va = _eval_non_mix(atlas, atlas.sub_a[tid], u, v)
-        vb = _eval_non_mix(atlas, atlas.sub_b[tid], u, v)
-        vw = _eval_non_mix(atlas, atlas.sub_w[tid], u, v)
-        mixed = va + (vb - va) * vw.x
-        out = Vec3(
-            torch.where(is_mix, mixed.x, out.x),
-            torch.where(is_mix, mixed.y, out.y),
-            torch.where(is_mix, mixed.z, out.z),
+def sample_texture_many(atlas: TextureAtlas, tex_ids, u, v, site: str = "material") -> Vec3:
+    """Per-ray texture sample over mixed kinds; INVALID_ID lanes get 1.0.
+    ``site`` names the caller in the ``textures`` span."""
+    with span("textures", site=site):
+        valid = tex_ids != INVALID_ID
+        if tracing():
+            count(f"textures.lanes.{site}", valid.numel())
+            count_device(f"textures.lanes_textured.{site}", valid.sum())
+        tid = torch.clamp_min(tex_ids, 0).long()
+        out = _eval_non_mix(atlas, tid, u, v)
+        if TEX_MIX in atlas.kinds_present:
+            # one level of mix nesting
+            is_mix = atlas.kind[tid] == TEX_MIX
+            va = _eval_non_mix(atlas, atlas.sub_a[tid], u, v)
+            vb = _eval_non_mix(atlas, atlas.sub_b[tid], u, v)
+            vw = _eval_non_mix(atlas, atlas.sub_w[tid], u, v)
+            mixed = va + (vb - va) * vw.x
+            out = Vec3(
+                torch.where(is_mix, mixed.x, out.x),
+                torch.where(is_mix, mixed.y, out.y),
+                torch.where(is_mix, mixed.z, out.z),
+            )
+        one = torch.ones_like(out.x)
+        return Vec3(
+            torch.where(valid, out.x, one),
+            torch.where(valid, out.y, one),
+            torch.where(valid, out.z, one),
         )
-    one = torch.ones_like(out.x)
-    return Vec3(
-        torch.where(valid, out.x, one),
-        torch.where(valid, out.y, one),
-        torch.where(valid, out.z, one),
-    )

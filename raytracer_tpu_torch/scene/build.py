@@ -315,24 +315,26 @@ class SceneBuilder:
 
     def _build_env_dist(self, device):
         """2-D luminance x sin(theta) distribution over the background
-        light's lat-long bitmap, for NEE importance sampling."""
+        light's lat-long bitmap, for NEE importance sampling (a
+        ``load.textures`` span)."""
         if self.textures is None:
             return None
         bg = next((l for l in self.lights if l.kind == T.LIGHT_BACKGROUND), None)
         if bg is None or bg.env_tex < 0:
             return None
-        atlas = self.textures
-        if int(atlas.kind[bg.env_tex]) != T.TEX_BITMAP:
-            return None
-        y0 = int(atlas.y0[bg.env_tex])
-        h = int(atlas.height[bg.env_tex])
-        w = int(atlas.width[bg.env_tex])
-        img = atlas.data[y0:y0 + h, :w, :].cpu().numpy()
-        lum = img @ np.array([0.2126, 0.7152, 0.0722], np.float64)
-        theta = (np.arange(h, dtype=np.float64) + 0.5) / h * np.pi
-        from ..math.distribution import make_distribution_2d
+        with span("load.textures", stage="env_dist"):
+            atlas = self.textures
+            if int(atlas.kind[bg.env_tex]) != T.TEX_BITMAP:
+                return None
+            y0 = int(atlas.y0[bg.env_tex])
+            h = int(atlas.height[bg.env_tex])
+            w = int(atlas.width[bg.env_tex])
+            img = atlas.data[y0:y0 + h, :w, :].cpu().numpy()
+            lum = img @ np.array([0.2126, 0.7152, 0.0722], np.float64)
+            theta = (np.arange(h, dtype=np.float64) + 0.5) / h * np.pi
+            from ..math.distribution import make_distribution_2d
 
-        return make_distribution_2d(lum * np.sin(theta)[:, None], device=device)
+            return make_distribution_2d(lum * np.sin(theta)[:, None], device=device)
 
     def _build_decals(self, device):
         """The decal table, sorted by descending ``order`` (the sort is

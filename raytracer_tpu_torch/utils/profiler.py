@@ -22,10 +22,11 @@ context: they read no clock and record nothing.  On:
 ``records()``, ``syncs()`` and ``counters()`` return what was recorded;
 ``reset()`` clears it.  ``collect()`` / ``report()`` aggregate the buffer:
 count, total and self time (the part no child span covers) per span name,
-and syncs by site.  ``device_ms_by_span`` and ``idle_by_span`` put a
-profiler's device operations, ``(name, start ns, end ns, launch ns)``, down
-to the spans: the device time launched inside each span, and each idle gap
-of the device under the innermost span in force when the device ran dry.
+and syncs by site.  ``device_ms_by_span``, ``device_ops_by_span`` and
+``idle_by_span`` put a profiler's device operations, ``(name, start ns, end
+ns, launch ns)``, down to the spans: the device time and the operations
+launched inside each span, and each idle gap of the device under the
+innermost span in force when the device ran dry.
 ``start_device_profile(log_dir)`` / ``stop_device_profile()`` record a
 ``torch.profiler`` capture of the host and the card and write it as a
 Chrome trace, the program's spans a track of their own beside torch's
@@ -253,6 +254,18 @@ def device_ms_by_span(ops, recs=None) -> dict:
     that name}; an operation counts once for each name among the spans that
     hold its launch.  Operations launched outside every span, or without a
     launch event, go under ``OUTSIDE``."""
+    return _by_span(ops, recs, lambda s, e: (e - s) * 1e-6)
+
+
+def device_ops_by_span(ops, recs=None) -> dict:
+    """{span name: device operations launched inside a span of that name},
+    placed as ``device_ms_by_span`` places their time."""
+    return _by_span(ops, recs, lambda s, e: 1)
+
+
+def _by_span(ops, recs, weight) -> dict:
+    """{span name: the sum of ``weight(start, end)`` over the operations
+    whose launch a span of that name holds}."""
     recs = _buffer if recs is None else recs
     at, by_id = _locate(recs)
     names = {}  # innermost span id -> the distinct names of it and its ancestors
@@ -271,9 +284,9 @@ def device_ms_by_span(ops, recs=None) -> dict:
     out = {}
     for _, s, e, launch in ops:
         r = at(launch) if launch is not None else None
-        ms = (e - s) * 1e-6
+        w = weight(s, e)
         for name in chain(r) if r is not None else (OUTSIDE,):
-            out[name] = out.get(name, 0.0) + ms
+            out[name] = out.get(name, 0) + w
     return out
 
 
