@@ -5,8 +5,9 @@
 Phases (any failure exits non-zero before the last line):
 
 1. device: needs CUDA; prints the card, its power limit, torch and CUDA.
-2. build: compiles csrc/wave2_mt.cu, wave2_extract.cu, phase2_grid.cu,
-   phase2_stream.cu, add_one.cu and bvh_walk.cu with nvcc, all at once, into
+2. build: compiles csrc/wave2_mt.cu, wave2_extract.cu, wave2_join.cu,
+   phase2_grid.cu, phase2_stream.cu, add_one.cu and bvh_walk.cu with nvcc,
+   all at once, into
    raytracer_tpu_torch/_build/, and prints what ptxas says of each.
 3. wave2 kernel vs twin (tools/torch_check_traverse.py::check_wave2_kernel):
    on the 200k-triangle bench mesh, one real traversal window (65,536
@@ -72,14 +73,22 @@ Phases (any failure exits non-zero before the last line):
     a window of bounce rays leaving their hit points, and the wave2 engine,
     kernel path against twin path, on both windows.  Every wave2 round of
     each interior render (and of phase 5's) launched the wave2_extract
-    kernel.  After the render, the wave2_extract kernel against its twin
+    kernel and the four wave2_join kernels.  After the render, the wave2_extract kernel against its twin
     (tools/torch_check_traverse.py::check_extract_kernel; bit-equal or FAIL):
     the hall's 65,536-ray camera window and the continuation window its
     first round leaves (both timed), then the edge rays of
     extract_edge_rays (origins in boxes, axis-parallel directions on the
     1e-12 floor, tl = 0 and tl < 0, cursors -1 / middle / Cs - 1) at kc 1,
     4, 16 and 33 on the hall and on cluster sets with Cs = 313, 8 and 5,000
-    (two of the kernel's tiles).
+    (two of the kernel's tiles).  Then the wave2_join kernels (key, runs,
+    place, select) against their twins
+    (tools/torch_check_traverse.py::check_join_kernels; bit-equal or FAIL):
+    every output of the join and of the select (closest-hit and any-hit
+    results) on the hall's camera window and the continuation window its
+    first round leaves (both timed: each launch's device time beside its
+    byte bound, the round's join + select device and host ms with the
+    kernels and with the twins), front to back on the camera window, and on
+    mixed windows of a 20k-triangle mesh at K = 8.
 13. interior800k_tex_mis: the same meshes with the textured additions of
     torch_gen_interior.ensure_interior_tex (textures block, normal-mapped
     textured floor slab, textured props, a lat-long sky on the background
@@ -344,7 +353,7 @@ from raytracer_tpu_torch.scene.presets import cornell_box, cornell_camera_kw  # 
 bench_mesh.BENCH_DIR = os.path.join(ROOT, "raytracer_tpu_torch", "_build", "bench_scene")
 INTERIOR_DIR = os.path.join(ROOT, "raytracer_tpu_torch", "_build", "interior")
 LOG_PATH = os.path.join(ROOT, "raytracer_tpu_torch", "_build", "chip_smoke.log")
-KERNELS = ("wave2_mt", "wave2_extract", "phase2_grid", "phase2_stream", "add_one", "bvh_walk")
+KERNELS = ("wave2_mt", "wave2_extract", "wave2_join", "phase2_grid", "phase2_stream", "add_one", "bvh_walk")
 _LOG = []  # the open log file, once main() has opened it
 RENDERS = []  # one summary entry per timed render
 T_START = time.perf_counter()
@@ -359,7 +368,7 @@ def log(msg: str):
 
 def launch_counts() -> dict:
     return {"wave2_mt": w2.mt_chunks.launches, "wave2_extract": w2._p1_extract.launches,
-            "phase2_grid": pt.phase2_grid.launches,
+            "wave2_join": w2._pair_join.launches + w2._select.launches, "phase2_grid": pt.phase2_grid.launches,
             "phase2_stream": pt.phase2_stream.launches, "bvh_walk": bt.bvh_walk.launches}
 
 
@@ -369,14 +378,18 @@ def check(cond, msg):
 
 def extract_on_every_round(run, label):
     """``run()``, then a check that each wave2 round it ran launched the
-    wave2_extract kernel once.  Returns ``run()``'s result and the kernel's
-    launches."""
+    wave2_extract kernel once and the four wave2_join kernels (key, runs,
+    place, select) once each.  Returns ``run()``'s result and the two
+    kernels' launches."""
     rounds0, launches0 = w2.STATS["rounds"], w2._p1_extract.launches
+    joins0 = w2._pair_join.launches + w2._select.launches
     out = run()
     rounds, launches = w2.STATS["rounds"] - rounds0, w2._p1_extract.launches - launches0
-    log(f"{label}: wave2 rounds {rounds}, wave2_extract launches {launches}")
+    joins = w2._pair_join.launches + w2._select.launches - joins0
+    log(f"{label}: wave2 rounds {rounds}, wave2_extract launches {launches}, wave2_join launches {joins}")
     check(launches == rounds > 0, f"{label}: each of the {rounds} wave2 rounds launched the wave2_extract kernel")
-    return out, launches
+    check(joins == 4 * rounds, f"{label}: each of the {rounds} wave2 rounds launched the four wave2_join kernels")
+    return out, (launches, joins)
 
 
 def timed_render(vp, passes, smi, label, first=None):
@@ -552,7 +565,7 @@ def interior_render(path, dev, smi, label, textured, passes=4):
     windows = cluster_windows(cs, *camera_window(cam, dev), float(meta.scene_radius), dev, label)
     vp = Viewport(scene, meta, cam, ViewportParams(512, 512, seed=0), RenderParams(max_depth=6, mis=True), device=dev)
     w2.mt_chunks.launches = 0
-    (_, _, _, overflow, radiance), extract = extract_on_every_round(
+    (_, _, _, overflow, radiance), (extract, joins) = extract_on_every_round(
         lambda: timed_render(vp, passes, smi, f"{label} [wave2]"), f"{label} [wave2]")
     launches = w2.mt_chunks.launches
     log(f"{label} [wave2]: wave2_mt launches {launches} in {passes + 1} passes; mean radiance {radiance.mean():.6f}")
@@ -560,7 +573,7 @@ def interior_render(path, dev, smi, label, textured, passes=4):
     check(overflow == 0, f"{label}: traversal overflow is 0")
     check(bool(np.isfinite(radiance).all()) and radiance.mean() > 0, f"{label}: radiance finite with non-zero mean")
     profiled(lambda: vp.render(1), f"{label} [wave2] pass", named=("wave2_mt",))
-    return vp, {"launches": launches, "extract_launches": extract, "windows": windows,
+    return vp, {"launches": launches, "extract_launches": extract, "join_launches": joins, "windows": windows,
                 "mean": float(radiance.mean())}, radiance
 
 
@@ -1364,6 +1377,8 @@ def run():
                                                                               False, passes=3)
     rows["wave2_extract"] = tct.check_extract_kernel(hall.scene.clusters, *camera_window(hall.cam, dev), dev, log)
     rows["wave2_extract"]["launches"] = mt["by_path"]["interior800k_mis"]["extract_launches"]
+    rows["wave2_join"] = tct.check_join_kernels(hall.scene.clusters, *camera_window(hall.cam, dev), dev, log)
+    rows["wave2_join"]["launches"] = mt["by_path"]["interior800k_mis"]["join_launches"]
 
     # --- 13. the textured interior ---------------------------------------------
     small = small_render_agrees(params, dev, "wave2", name="small textured scene",

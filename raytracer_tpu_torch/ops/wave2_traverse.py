@@ -16,13 +16,20 @@ Exact closest-hit / any-hit over a ``ClusterSet`` for a whole wavefront:
    ``kc`` least keys above its cursor key, nearest first, with a lower bound
    on the next one's entry distance for early termination.
 2. ``_pair_join``: one stable sort of the (ray, super) pairs on the key
-   ``super << shift | octant | origin Morton``; a second sort filler-pads
-   every super's run to whole ``CHUNK``-pair chunks, so no chunk crosses
-   supers and nothing is dropped; ``block_cluster`` names each chunk's super.
+   ``super << shift | octant | origin Morton``; every super's run is
+   filler-padded to whole ``CHUNK``-pair chunks, so no chunk crosses supers
+   and nothing is dropped; ``block_cluster`` names each chunk's super.  On
+   the card ``csrc/wave2_join.cu`` computes the keys, the runs and each
+   pair's padded slot by arithmetic around the one sort; the plain twin
+   ``pair_join_reference`` (the reference's second sort, cummax and cumsum)
+   runs on the CPU.
 3. ``mt_chunks``: Möller-Trumbore per chunk — the hand-written CUDA kernel
    ``csrc/wave2_mt.cu`` on the card, its plain PyTorch twin on the CPU.
-4. A third sort returns the results to ray order; a dense (N, kc) masked
-   min picks each ray's hit (least t, ties to the lowest tri id).
+4. ``_select``: each ray's least t, ties to the lowest tri id, its new
+   cursor and whether it is resolved.  On the card one thread a ray reads
+   its results through the join's ``slot_of_pair``; the plain twin
+   ``select_reference`` sorts them back to ray order (the reference's third
+   sort) and takes a dense (N, kc) masked min.
 5. ``_window_trace``: unresolved rays (a nearer unvisited candidate may
    exist) are compacted into ``NSUB``-ray sub-wavefronts and traced again
    until none remain — the exactness guarantee.
@@ -78,6 +85,13 @@ _P1_CHUNK_ELEMS = 1 << 26  # bound on one (rays x Cs) slab-test block
 MT_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 # wave2_extract_launch: 11 pointers, (n, cs, kc), the stream
 EXTRACT_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+# wave2_join_<name>_launch of csrc/wave2_join.cu: pointers, ints, the stream
+JOIN_ARGTYPES = {
+    "key": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p],  # (n, kc, cs, p_pad, key_shift)
+    "runs": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],  # (p_pad, cs, key_shift, chunk)
+    "place": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_void_p],  # (b2, kc, p, p_pad, cs, chunk)
+    "select": [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [ctypes.c_void_p],  # (n, kc, cs, ftb, any_hit)
+}
 
 # windows traced, rounds run (first and continuation), continuation
 # iterations, the most in one window, (ray, candidate) pair slots, host syncs
@@ -257,9 +271,24 @@ class PairJoin(NamedTuple):
     fidx: torch.Tensor  # (d_len,) pair slot at each padded position (>= p: pad/filler)
     pairs: tuple  # 7 x (B2, ROWS, 128) f32: ox, oy, oz, dx, dy, dz, tl per pair
     block_cluster: torch.Tensor  # (B2,) int32 super id per chunk (Cs = sentinel)
+    slot_of_pair: torch.Tensor = None  # (p,) int32 padded position of each pair (the kernels'; the twin's None)
 
 
-def _pair_join(cs_set: ClusterSet, cand, ox, oy, oz, dx, dy, dz, tl) -> PairJoin:
+def _spatial_key_shift(cs: int) -> int:
+    """The pair key's shift: ``_key_shift``, or 0 under ``RT_WAVE2_SPATIAL_KEY=0``
+    (the key is then the super id alone)."""
+    return _key_shift(cs) if os.environ.get("RT_WAVE2_SPATIAL_KEY", "1") != "0" else 0
+
+
+def _filler_budget(cs: int) -> int:
+    """Filler slots a join hands on besides the p_pad pairs: room for every
+    super's run to be padded to whole chunks (a CHUNK multiple)."""
+    return -(-(cs * (CHUNK - 1)) // CHUNK) * CHUNK
+
+
+def pair_join_reference(cs_set: ClusterSet, cand, ox, oy, oz, dx, dy, dz, tl) -> PairJoin:
+    """Plain PyTorch twin of ``csrc/wave2_join.cu``'s key, runs and place
+    launches (the reference's two sorts, cummax and cumsum)."""
     n, kc = cand.shape
     cs = cs_set.num_supers
     p = n * kc
@@ -268,7 +297,7 @@ def _pair_join(cs_set: ClusterSet, cand, ox, oy, oz, dx, dy, dz, tl) -> PairJoin
     # composite key (super id | ray octant | ray origin Morton): chunks stay
     # single-super while each chunk's rows become spatially and
     # directionally coherent, so the kernel's per-(row, sub) gate culls
-    key_shift = _key_shift(cs) if os.environ.get("RT_WAVE2_SPATIAL_KEY", "1") != "0" else 0
+    key_shift = _spatial_key_shift(cs)
     mbits = max(0, key_shift - 3)
     box = cs_set.super_box
     valid_s = box[:, 0] <= box[:, 3]
@@ -310,7 +339,7 @@ def _pair_join(cs_set: ClusterSet, cand, ox, oy, oz, dx, dy, dz, tl) -> PairJoin
     len_c = start[1:] - start[:-1]
     pad_c = (-len_c) % CHUNK
     gap_start = d_c[:cs] + len_c
-    f = -(-(cs * (CHUNK - 1)) // CHUNK) * CHUNK  # filler budget (CHUNK multiple)
+    f = _filler_budget(cs)
     d_len = p_pad + f
     if tracing():  # slots handed to the sort, the gathers and the kernel, and the pairs among them
         count("wave2.pair_slots_sent", d_len)
@@ -333,6 +362,77 @@ def _pair_join(cs_set: ClusterSet, cand, ox, oy, oz, dx, dy, dz, tl) -> PairJoin
     block_cluster = torch.searchsorted(d_c, _arange(b2, d_c) * CHUNK, right=True, out_int32=True) - 1
     block_cluster = torch.clamp(torch.clamp_max(block_cluster, cs), 0, cs)
     return PairJoin(sidx, fidx, pairs, block_cluster)
+
+
+def _join_kernels():
+    """The launch functions of ``csrc/wave2_join.cu``: key, runs, place, select."""
+    from .cuda_build import kernel_function
+
+    return tuple(kernel_function("wave2_join", f"wave2_join_{name}_launch", argtypes)
+                 for name, argtypes in JOIN_ARGTYPES.items())
+
+
+def _pair_join(cs_set: ClusterSet, cand, ox, oy, oz, dx, dy, dz, tl) -> PairJoin:
+    """Sort-join of the (N, kc) candidates into single-super chunks
+    (``pair_join_reference`` says what it returns).  CPU tensors take the
+    plain twin; CUDA tensors launch ``csrc/wave2_join.cu``'s key, runs and
+    place kernels around one ``torch.sort`` (counted in
+    ``_pair_join.launches`` and, under tracing, ``wave2.join_launches``) or
+    raise.  The kernels' join also gives ``slot_of_pair``, which the select
+    reads back through."""
+    dev = cand.device
+    if dev.type == "cpu":
+        return pair_join_reference(cs_set, cand, ox, oy, oz, dx, dy, dz, tl)
+    if dev.type != "cuda":
+        raise ValueError(f"_pair_join: unsupported device {dev}")
+    n, kc = cand.shape
+    cs = cs_set.num_supers
+    box = cs_set.super_box
+    rays = (ox, oy, oz, dx, dy, dz, tl)
+    ok = (
+        cand.dtype == torch.int32 and box.dtype == torch.float32 and tuple(box.shape) == (cs, 6) and cs > 0
+        and all(a.dtype == torch.float32 and tuple(a.shape) == (n,) for a in rays)
+        and all(a.device == dev and a.is_contiguous() for a in (cand, box, *rays))
+    )
+    if not ok:
+        raise ValueError("_pair_join: inputs do not match the kernels' dtypes, shapes, device or layout")
+    p = n * kc
+    p_pad = -(-p // CHUNK) * CHUNK
+    d_len = p_pad + _filler_budget(cs)
+    b2 = d_len // CHUNK
+    key_shift = _spatial_key_shift(cs)
+    key_fn, runs_fn, place_fn, _ = _join_kernels()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    key = torch.empty((p_pad,), dtype=torch.int32, device=dev)
+    rc = key_fn(box.data_ptr(), cand.data_ptr(), *(a.data_ptr() for a in rays[:6]), key.data_ptr(), n, kc, cs, p_pad,
+                key_shift, stream)
+    if rc != 0:
+        raise RuntimeError(f"wave2_join key kernel launch failed: cudaError {rc}")
+    sk, perm = torch.sort(key, stable=True)
+    runs = torch.empty((2, cs + 1), dtype=torch.int32, device=dev)  # start, then dstart
+    start, dstart = runs[0], runs[1]
+    rc = runs_fn(sk.data_ptr(), start.data_ptr(), dstart.data_ptr(), p_pad, cs, key_shift, CHUNK, stream)
+    if rc != 0:
+        raise RuntimeError(f"wave2_join runs kernel launch failed: cudaError {rc}")
+    if tracing():  # as the twin counts them
+        count("wave2.pair_slots_sent", d_len)
+        count_device("wave2.pair_slots_real", start[cs])
+    # one allocation each for the int32 results and the seven pair planes
+    ints = torch.empty((p_pad + d_len + b2 + p,), dtype=torch.int32, device=dev)
+    sidx, fidx, block_cluster, slot_of_pair = torch.split(ints, (p_pad, d_len, b2, p))
+    planes = torch.empty((7, b2, ROWS, 128), dtype=torch.float32, device=dev)
+    rc = place_fn(perm.data_ptr(), start.data_ptr(), dstart.data_ptr(), *(a.data_ptr() for a in rays),
+                  sidx.data_ptr(), fidx.data_ptr(), planes.data_ptr(), block_cluster.data_ptr(), slot_of_pair.data_ptr(),
+                  b2, kc, p, p_pad, cs, CHUNK, stream)
+    if rc != 0:
+        raise RuntimeError(f"wave2_join place kernel launch failed: cudaError {rc}")
+    _pair_join.launches += 3
+    count("wave2.join_launches", 3)
+    return PairJoin(sidx, fidx, tuple(planes), block_cluster, slot_of_pair)
+
+
+_pair_join.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -479,6 +579,104 @@ mt_chunks.launches = 0
 
 
 # --------------------------------------------------------------------------
+# Phase 4: each ray's winner, cursor and resolution
+# --------------------------------------------------------------------------
+
+
+def select_reference(cs: int, cand, join: PairJoin, outs, tl, cursor, any_hit: bool, ftb: bool, remaining=None,
+                     next_t=None, new_key=None):
+    """Plain PyTorch twin of ``csrc/wave2_join.cu``'s select launch: the
+    chunk results ``outs`` (t, tri, u, v, done) back to ray order by a sort
+    on ``join.fidx``, then a dense (N, kc) masked min: the least t, ties to
+    the lowest tri id.  ``remaining`` (id order) or ``next_t`` and
+    ``new_key`` (front to back) come from the extraction.  Returns (t, tri,
+    u, v, new_cursor, unresolved); t == |tl| where no hit."""
+    n, kc = cand.shape
+    ah_ray = tl < 0.0
+    # back to ray-major pair order (pads and fillers carry idx >= p -> tail)
+    _, t_p, tri_p, u_p, v_p, done_p = _stable_sort(join.fidx, *(o.reshape(-1) for o in outs))
+    p = n * kc
+    t_p, tri_p, u_p, v_p, done_p = (x[:p].reshape(n, kc) for x in (t_p, tri_p, u_p, v_p, done_p))
+
+    # dense winner select: min t, ties to the lowest tri id
+    slot_valid = cand < cs
+    hit = slot_valid & (done_p > 0) & (tri_p >= 0)
+    tkey = torch.where(hit, t_p, float("inf"))
+    best_t = tkey.amin(1)
+    won = tkey == best_t[:, None]
+    best_tri = torch.where(won, tri_p, 2 ** 31 - 1).amin(1)
+    final = won & (tri_p == best_tri[:, None])
+    got_hit = torch.isfinite(best_t)
+    best_u = torch.where(got_hit, torch.where(final, u_p, float("-inf")).amax(1), 0.0)
+    best_v = torch.where(got_hit, torch.where(final, v_p, float("-inf")).amax(1), 0.0)
+    best_tri = torch.where(got_hit, best_tri, -1)
+    t_round = torch.where(got_hit, best_t, torch.abs(tl))
+
+    unproc = slot_valid & (done_p == 0)
+    any_unproc = unproc.any(1)
+    if ftb:
+        # no slot is left unprocessed (runs are filler-padded to whole
+        # chunks); if one were, the ray would retry from its cursor
+        new_cursor = torch.where(any_unproc, cursor, new_key)
+        unresolved = any_unproc | (next_t < t_round)
+    else:
+        min_unproc = torch.where(unproc, cand, cs + 1).amin(1)
+        max_extracted = torch.where(slot_valid, cand, -1).amax(1)
+        new_cursor = torch.where(any_unproc, min_unproc - 1, torch.maximum(max_extracted, cursor))
+        unresolved = any_unproc | (remaining > 0)
+    if any_hit:
+        unresolved = unresolved & (best_tri < 0)
+    unresolved = unresolved & ~(ah_ray & (best_tri >= 0))
+    return t_round, best_tri, best_u, best_v, new_cursor, unresolved
+
+
+def _select(cs: int, cand, join: PairJoin, outs, tl, cursor, any_hit: bool, ftb: bool, remaining=None, next_t=None,
+            new_key=None):
+    """Each ray's result of a round (``select_reference`` says what it
+    returns).  CPU tensors take the plain twin; CUDA tensors launch
+    ``csrc/wave2_join.cu``'s select kernel, one thread a ray reading its
+    slots through ``join.slot_of_pair`` (counted in ``_select.launches``
+    and, under tracing, ``wave2.join_launches``), or raise."""
+    dev = cand.device
+    if dev.type == "cpu":
+        return select_reference(cs, cand, join, outs, tl, cursor, any_hit, ftb, remaining, next_t, new_key)
+    if dev.type != "cuda":
+        raise ValueError(f"_select: unsupported device {dev}")
+    n, kc = cand.shape
+    slot = join.slot_of_pair
+    ints = (cand, slot, outs[1], outs[4], cursor) + ((new_key,) if ftb else (remaining,))
+    floats = (tl, outs[0], outs[2], outs[3]) + ((next_t,) if ftb else ())
+    per_ray = (tl, cursor) + ((next_t, new_key) if ftb else (remaining,))
+    ok = (
+        all(a is not None and a.device == dev and a.is_contiguous() for a in (*ints, *floats))
+        and all(a.dtype == torch.int32 for a in ints) and all(a.dtype == torch.float32 for a in floats)
+        and tuple(slot.shape) == (n * kc,) and all(tuple(a.shape) == (n,) for a in per_ray)
+        and all(a.numel() == outs[0].numel() for a in outs)
+    )
+    if not ok:
+        raise ValueError("_select: inputs do not match the kernel's dtypes, shapes, device or layout "
+                         "(its join must come from the kernels)")
+    fn = _join_kernels()[3]
+    f32 = torch.empty((4, n), dtype=torch.float32, device=dev)  # t, tri (int32 view), u, v
+    t_out, tri_out, u_out, v_out = f32[0], f32[1].view(torch.int32), f32[2], f32[3]
+    new_cursor = torch.empty((n,), dtype=torch.int32, device=dev)
+    unresolved = torch.empty((n,), dtype=torch.bool, device=dev)
+    ptr = lambda a: a.data_ptr() if a is not None else None
+    rc = fn(cand.data_ptr(), slot.data_ptr(), *(o.data_ptr() for o in outs), tl.data_ptr(), cursor.data_ptr(),
+            ptr(remaining), ptr(next_t), ptr(new_key), t_out.data_ptr(), tri_out.data_ptr(), u_out.data_ptr(),
+            v_out.data_ptr(), new_cursor.data_ptr(), unresolved.data_ptr(), n, kc, cs, int(ftb), int(any_hit),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"wave2_join select kernel launch failed: cudaError {rc}")
+    _select.launches += 1
+    count("wave2.join_launches")
+    return t_out, tri_out, u_out, v_out, new_cursor, unresolved
+
+
+_select.launches = 0
+
+
+# --------------------------------------------------------------------------
 # One round, the continuation loop and the windowed driver
 # --------------------------------------------------------------------------
 
@@ -491,7 +689,7 @@ def _round(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tl, cursor, kc: int, any_
     cannot beat its hit."""
     n = ox.shape[0]
     cs = cs_set.num_supers
-    ah_ray = tl < 0.0
+    remaining = next_t = new_key = None
     with span("wave2.extract"):
         if ftb:
             cand, next_t, new_key = _p1_extract_ftb(cs_set, ox, oy, oz, dx, dy, dz, tl, cursor, kc)
@@ -512,41 +710,7 @@ def _round(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tl, cursor, kc: int, any_
     STATS["rounds"] += 1
     STATS["pair_slots"] += n * kc
     with span("wave2.select"):
-        # back to ray-major pair order (pads and fillers carry idx >= p -> tail)
-        _, t_p, tri_p, u_p, v_p, done_p = _stable_sort(join.fidx, *(o.reshape(-1) for o in outs))
-        p = n * kc
-        t_p, tri_p, u_p, v_p, done_p = (x[:p].reshape(n, kc) for x in (t_p, tri_p, u_p, v_p, done_p))
-
-        # dense winner select: min t, ties to the lowest tri id
-        slot_valid = cand < cs
-        hit = slot_valid & (done_p > 0) & (tri_p >= 0)
-        tkey = torch.where(hit, t_p, float("inf"))
-        best_t = tkey.amin(1)
-        won = tkey == best_t[:, None]
-        best_tri = torch.where(won, tri_p, 2 ** 31 - 1).amin(1)
-        final = won & (tri_p == best_tri[:, None])
-        got_hit = torch.isfinite(best_t)
-        best_u = torch.where(got_hit, torch.where(final, u_p, float("-inf")).amax(1), 0.0)
-        best_v = torch.where(got_hit, torch.where(final, v_p, float("-inf")).amax(1), 0.0)
-        best_tri = torch.where(got_hit, best_tri, -1)
-        t_round = torch.where(got_hit, best_t, torch.abs(tl))
-
-        unproc = slot_valid & (done_p == 0)
-        any_unproc = unproc.any(1)
-        if ftb:
-            # no slot is left unprocessed (runs are filler-padded to whole
-            # chunks); if one were, the ray would retry from its cursor
-            new_cursor = torch.where(any_unproc, cursor, new_key)
-            unresolved = any_unproc | (next_t < t_round)
-        else:
-            min_unproc = torch.where(unproc, cand, cs + 1).amin(1)
-            max_extracted = torch.where(slot_valid, cand, -1).amax(1)
-            new_cursor = torch.where(any_unproc, min_unproc - 1, torch.maximum(max_extracted, cursor))
-            unresolved = any_unproc | (remaining > 0)
-        if any_hit:
-            unresolved = unresolved & (best_tri < 0)
-        unresolved = unresolved & ~(ah_ray & (best_tri >= 0))
-        return t_round, best_tri, best_u, best_v, new_cursor, unresolved
+        return _select(cs, cand, join, outs, tl, cursor, any_hit, ftb, remaining, next_t, new_key)
 
 
 def _masked(a, mask):

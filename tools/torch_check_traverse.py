@@ -8,8 +8,8 @@ kernels (counterpart of ``tools/check_pallas.py`` and of the ``cluster``,
 Runs on the CUDA device (the kernels; it exits when there is none), or with
 ``cpu`` on the CPU at a small size (the kernels' plain versions).  Imports torch, numpy and the
 port only.  ``chip_smoke.py`` calls ``check_kernels``, ``check_engines``,
-``check_extract_kernel``, ``check_bvh_walk`` and ``bvh_against_wave2`` in
-its phases.
+``check_extract_kernel``, ``check_join_kernels``, ``check_bvh_walk`` and
+``bvh_against_wave2`` in its phases.
 """
 
 from __future__ import annotations
@@ -206,15 +206,16 @@ def check(cond, msg, log=print):
 
 class twin_engine:
     """Within the block, the wave2 engine calls the kernels' plain twins
-    (extraction and Möller-Trumbore), not the kernels."""
+    (extraction, join, Möller-Trumbore and select), not the kernels."""
 
     def __enter__(self):
-        self.saved = w2.mt_chunks, w2._p1_extract
+        self.saved = w2.mt_chunks, w2._p1_extract, w2._pair_join, w2._select
         w2.mt_chunks, w2._p1_extract = w2.mt_chunks_reference, w2.p1_extract_reference
+        w2._pair_join, w2._select = w2.pair_join_reference, w2.select_reference
         return self
 
     def __exit__(self, *exc):
-        w2.mt_chunks, w2._p1_extract = self.saved
+        w2.mt_chunks, w2._p1_extract, w2._pair_join, w2._select = self.saved
 
 
 class plain_kernels:
@@ -786,6 +787,179 @@ def check_extract_kernel(cs, o, d, dev, log=print, reps=20, plain_reps=5):
     return row
 
 
+JOIN_LAUNCHES = ("join_key", "join_runs", "join_place", "join_select")  # the kernels' names in a trace
+
+
+def _join_window(label, cs, o, d, tl, cursor, log, ftb=False):
+    """``_pair_join`` and ``_select`` (on CUDA tensors the kernels of
+    ``csrc/wave2_join.cu``) against their twins on one window, for
+    closest-hit and any-hit results of the MT kernel: every output
+    bit-equal, or exit.  Returns the window's candidates, rays, extraction
+    results and closest-hit MT results, for timing."""
+    ro, rd = vec(o, tl.device), vec(d, tl.device)
+    rays = (*ro, *rd, tl)
+    kc = min(w2.KC_FTB if ftb else w2.KC, cs.num_supers)
+    if ftb:
+        cand, next_t, new_key = w2._p1_extract_ftb(cs, *rays, cursor, kc)
+        more = dict(next_t=next_t, new_key=new_key)
+    else:
+        cand, remaining = w2._p1_extract(cs, *rays, cursor, kc)
+        more = dict(remaining=remaining)
+    got = w2._pair_join(cs, cand, *rays)
+    want = w2.pair_join_reference(cs, cand, *rays)
+    p = cand.numel()
+    same = {"sidx": torch.equal(got.sidx, want.sidx), "fidx": torch.equal(got.fidx, want.fidx),
+            "block_cluster": torch.equal(got.block_cluster, want.block_cluster),
+            "pairs": all(torch.equal(_bits(a), _bits(b)) for a, b in zip(got.pairs, want.pairs)),
+            "slot_of_pair": torch.equal(want.fidx[got.slot_of_pair.long()], torch.arange(p, dtype=torch.int32,
+                                                                                           device=tl.device))}
+    torch.cuda.synchronize()
+    log(f"join vs twin [{label}]: rays={tl.shape[0]} Cs={cs.num_supers} kc={kc} pairs real="
+        f"{int((cand < cs.num_supers).sum())} of {p}, slots={got.fidx.shape[0]}, chunks={got.block_cluster.shape[0]} "
+        f"live={int((got.block_cluster < cs.num_supers).sum())}; equal: {same}")
+    check(all(same.values()), f"wave2_join key/runs/place kernels equal the twin bit for bit ({label})", log)
+    closest = None
+    for any_hit in (False, True):
+        outs = w2.mt_chunks(got.block_cluster, cs.super_geom, cs.super_sbox, *got.pairs, any_hit=any_hit)
+        closest = closest or outs
+        a = w2._select(cs.num_supers, cand, got, outs, tl, cursor, any_hit, ftb, **more)
+        b = w2.select_reference(cs.num_supers, cand, want, outs, tl, cursor, any_hit, ftb, **more)
+        names = ("t", "tri", "u", "v", "cursor", "unresolved")
+        diff = {k: int((_bits(x) != _bits(y)).sum()) for k, x, y in zip(names, a, b)}
+        log(f"select vs twin [{label}, {'any-hit' if any_hit else 'closest'}]: hits={int((b[1] >= 0).sum())} "
+            f"unresolved={int(b[5].sum())} mismatches={diff}")
+        check(all(x.dtype == y.dtype and torch.equal(_bits(x), _bits(y)) for x, y in zip(a, b)),
+              f"wave2_join select kernel equals its twin bit for bit ({label}, any_hit={any_hit})", log)
+    return cand, rays, more, closest
+
+
+def _profile_ops(fn, reps):
+    """Device operations (name, ms) of ``reps`` calls of ``fn``, as the
+    profiler records them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return [(e.name(), e.duration_ns() / 1e6) for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
+def _host_ms(fn, reps):
+    """Median host milliseconds to dispatch ``fn`` (no synchronisation inside
+    the timed call; the device is drained before each)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
+def _time_join(label, cs, cand, rays, more, outs, log, reps):
+    """Each launch's device time beside its byte bound, and the round's join
+    + select device and host ms with the kernels and with the twins (the
+    path the port took before them).  Returns the row's numbers."""
+    tl = rays[6]
+    cursor = torch.full_like(tl, -1, dtype=torch.int32)
+    n, kc = cand.shape
+    n_cs = cs.num_supers
+
+    def kernels():
+        j = w2._pair_join(cs, cand, *rays)
+        return w2._select(n_cs, cand, j, outs, tl, cursor, False, False, **more)
+
+    def twins():
+        j = w2.pair_join_reference(cs, cand, *rays)
+        return w2.select_reference(n_cs, cand, j, outs, tl, cursor, False, False, **more)
+
+    join = w2._pair_join(cs, cand, *rays)
+    p = n * kc
+    p_pad, d_len, b2 = join.sidx.shape[0], join.fidx.shape[0], join.block_cluster.shape[0]
+    valid = int((cand < n_cs).sum())
+    log2 = int(np.ceil(np.log2(p_pad + 1)))
+    n_bytes = {  # each input read once, each output written once
+        "join_key": p * 4 + n * 6 * 4 + n_cs * 24 + p_pad * 4,
+        "sort": p_pad * 4 + p_pad * (4 + 8),
+        "join_runs": (n_cs + 1) * log2 * 4 + 2 * (n_cs + 1) * 4,
+        "join_place": p_pad * 8 + 2 * (n_cs + 1) * 4 + n * 7 * 4 + p_pad * 4 + d_len * 8 * 4 + b2 * 4 + p * 4,
+        "join_select": p * 4 + valid * (1 + 5) * 4 + n * 3 * 4 + n * (5 * 4 + 1),
+    }
+    ops = _profile_ops(kernels, reps)
+    by = {k: [ms for name, ms in ops if k in name] for k in JOIN_LAUNCHES}
+    by["sort"] = [ms for name, ms in ops if not any(k in name for k in JOIN_LAUNCHES)]
+    out = {"launches": {}, "rays": n, "pair_slots": d_len}
+    for k, times in by.items():
+        per_call = sum(times) / reps
+        b_ms, b_by = bound_ms(n_bytes[k], 0)
+        out["launches"][k] = dict(ms=per_call, bound_ms=b_ms, ops=len(times) / reps)
+        log(f"time [{label}] {k}: {per_call:.4f} ms of device time a round in {len(times) / reps:.2f} operation(s), "
+            f"bound {b_ms:.6f} ms by {b_by} ({n_bytes[k]} bytes), {100 * b_ms / max(per_call, 1e-9):.2f}% of it")
+    twin_ops = _profile_ops(twins, reps)
+    out["ms"] = sum(ms for _, ms in ops) / reps
+    out["plain_ms"] = sum(ms for _, ms in twin_ops) / reps
+    out["host_ms"] = _host_ms(kernels, reps)
+    out["plain_host_ms"] = _host_ms(twins, reps)
+    out["bound_ms"], out["bound_by"] = bound_ms(sum(n_bytes.values()), 0)
+    log(f"time [{label}] join + select a round: kernels {out['ms']:.4f} ms of device time in {len(ops) / reps:.2f} "
+        f"operations, {out['host_ms']:.4f} ms on the host; twins {out['plain_ms']:.4f} ms of device time in "
+        f"{len(twin_ops) / reps:.2f} operations, {out['plain_host_ms']:.4f} ms on the host; bound "
+        f"{out['bound_ms']:.6f} ms by bytes")
+    return out
+
+
+def check_join_kernels(cs, o, d, dev, log=print, reps=20):
+    """The pair-placement kernels (``csrc/wave2_join.cu``: key, runs, place,
+    select) against their plain twins, bit-equal or exit: on the (n, 3)
+    camera window ``o``, ``d`` of the cluster set ``cs`` (closest-hit rays,
+    cursor -1, kc = 16; timed), on the continuation window that a real first
+    round of it leaves (timed), front to back (kc = 4) on the camera
+    window, and on windows of mixed closest / any-hit / idle rays against a
+    20k-triangle mesh at K = 8.  Returns the kernel table's row."""
+    import bench_mesh
+    from raytracer_tpu_torch.scene.clusters import build_clusters
+
+    o, d = (torch.as_tensor(x, dtype=torch.float32, device=dev) for x in (o, d))
+    n = o.shape[0]
+    tl = torch.full((n,), BIGF, dtype=torch.float32, device=dev)
+    cursor = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    row = {"name": "wave2_join", "route": "cuda", "source": "raytracer_tpu_torch/csrc/wave2_join.cu",
+           "replaces": "none (XLA: the sorts, cummax and cumsum of raytracer_tpu/ops/wave2_traverse.py::_round)",
+           "launches": 0, "library_ms": None, "max_abs_err": 0.0}
+    camera = _join_window("camera window", cs, o, d, tl, cursor, log)
+    row["windows"] = {"camera": _time_join("camera window", cs, *camera, log, reps)}
+
+    # a continuation window as _window_trace builds it from the first round
+    ro, rd = vec(o, dev), vec(d, dev)
+    t, _, _, _, cur, unres = w2._round(cs, *ro, *rd, tl, cursor, min(w2.KC, cs.num_supers), any_hit=False)
+    sel = torch.sort((~unres).to(torch.int32), stable=True).indices[:min(w2.NSUB, n)]
+    live = unres[sel]
+    log(f"continuation window: {int(live.sum())} of {n} rays unresolved after the first round, {sel.shape[0]} slots")
+    cont = _join_window("continuation window", cs, o[sel], d[sel], torch.where(live, t[sel], 0.0), cur[sel], log)
+    row["windows"]["continuation"] = _time_join("continuation window", cs, *cont, log, reps)
+    row.update({k: row["windows"]["camera"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+
+    _join_window("camera window, front to back", cs, o, d, tl, cursor, log, ftb=True)
+    verts, faces = bench_mesh.make_mesh(20_000)
+    tri = verts[faces].astype(np.float32)
+    small = build_clusters(tri[:, 0], tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0], k=8, device=dev)
+    rng = np.random.default_rng(18)
+    mo, md = incoherent_rays(10_000, rng)
+    u = rng.random(mo.shape[0])
+    mtl = torch.as_tensor(np.where(u < 0.9, np.where(u < 0.3, -rng.uniform(1.0, 20.0, mo.shape[0]), BIGF), 0.0),
+                          dtype=torch.float32, device=dev)
+    mcur = torch.full_like(mtl, -1, dtype=torch.int32)
+    for ftb in (False, True):
+        _join_window(f"mixed window, 20k-triangle mesh K=8, ftb={ftb}", small, mo, md, mtl, mcur, log, ftb=ftb)
+    return row
+
+
 def _bits(x):
     return x.view(torch.int32) if x.dtype == torch.float32 else x
 
@@ -965,6 +1139,7 @@ def main():
     if on_card:
         check_wave2_kernel(cs, dev, n_rays=n_rays)
         check_extract_kernel(cs, *coherent_rays(n_rays), dev)
+        check_join_kernels(cs, *coherent_rays(n_rays), dev)
         check_kernels(cs, dev, n_coherent=4 * n_rays, n_incoherent=n_rays)
     check_engines(cs, dev, n_rays=n_rays, on_card=on_card)
     # the skip-link walk: its triangle ids are the leaf order, so the
