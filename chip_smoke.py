@@ -6,7 +6,8 @@ Phases (any failure exits non-zero before the last line):
 
 1. device: needs CUDA; prints the card, its power limit, torch and CUDA.
 2. build: compiles csrc/wave2_mt.cu, wave2_extract.cu, wave2_join.cu,
-   phase2_grid.cu, phase2_stream.cu, add_one.cu and bvh_walk.cu with nvcc,
+   phase2_grid.cu, phase2_stream.cu, add_one.cu, empty_launch.cu and
+   bvh_walk.cu with nvcc,
    all at once, into
    raytracer_tpu_torch/_build/, and prints what ptxas says of each.
 3. wave2 kernel vs twin (tools/torch_check_traverse.py::check_wave2_kernel):
@@ -337,10 +338,9 @@ from raytracer_tpu_torch.ops import bvh_traverse as bt  # noqa: E402
 from raytracer_tpu_torch.ops.cluster_traverse import cluster_closest_hit  # noqa: E402
 from raytracer_tpu_torch.parallel.launch import backend_for  # noqa: E402
 from raytracer_tpu_torch.ops import cuda_build  # noqa: E402
-from raytracer_tpu_torch.ops import pallas_traverse as pt  # noqa: E402
+from raytracer_tpu_torch.ops.cuda_build import launch_counts  # noqa: E402
 from raytracer_tpu_torch.ops import traverse  # noqa: E402
 from raytracer_tpu_torch.ops import wave2_traverse as w2  # noqa: E402
-from raytracer_tpu_torch.ops.launch_probe import add_one  # noqa: E402
 from raytracer_tpu_torch.render.film import average_radiance, make_film  # noqa: E402
 from raytracer_tpu_torch.render.renderer import Viewport, ViewportParams, pixel_grid, render_pass  # noqa: E402
 from raytracer_tpu_torch.sampler.sampler import make_stream  # noqa: E402
@@ -354,6 +354,7 @@ bench_mesh.BENCH_DIR = os.path.join(ROOT, "raytracer_tpu_torch", "_build", "benc
 INTERIOR_DIR = os.path.join(ROOT, "raytracer_tpu_torch", "_build", "interior")
 LOG_PATH = os.path.join(ROOT, "raytracer_tpu_torch", "_build", "chip_smoke.log")
 KERNELS = ("wave2_mt", "wave2_extract", "wave2_join", "phase2_grid", "phase2_stream", "add_one", "bvh_walk")
+LIBRARIES = KERNELS + ("empty_launch",)  # the empty kernel has no row: it is the dispatch probe's floor
 _LOG = []  # the open log file, once main() has opened it
 RENDERS = []  # one summary entry per timed render
 T_START = time.perf_counter()
@@ -366,12 +367,6 @@ def log(msg: str):
         f.flush()
 
 
-def launch_counts() -> dict:
-    return {"wave2_mt": w2.mt_chunks.launches, "wave2_extract": w2._p1_extract.launches,
-            "wave2_join": w2._pair_join.launches + w2._select.launches, "phase2_grid": pt.phase2_grid.launches,
-            "phase2_stream": pt.phase2_stream.launches, "bvh_walk": bt.bvh_walk.launches}
-
-
 def check(cond, msg):
     tct.check(cond, msg, log)
 
@@ -381,11 +376,10 @@ def extract_on_every_round(run, label):
     wave2_extract kernel once and the four wave2_join kernels (key, runs,
     place, select) once each.  Returns ``run()``'s result and the two
     kernels' launches."""
-    rounds0, launches0 = w2.STATS["rounds"], w2._p1_extract.launches
-    joins0 = w2._pair_join.launches + w2._select.launches
+    rounds0, counts0 = w2.STATS["rounds"], launch_counts()
     out = run()
-    rounds, launches = w2.STATS["rounds"] - rounds0, w2._p1_extract.launches - launches0
-    joins = w2._pair_join.launches + w2._select.launches - joins0
+    launched = launch_counts() - counts0
+    rounds, launches, joins = w2.STATS["rounds"] - rounds0, launched["wave2_extract"], launched["wave2_join"]
     log(f"{label}: wave2 rounds {rounds}, wave2_extract launches {launches}, wave2_join launches {joins}")
     check(launches == rounds > 0, f"{label}: each of the {rounds} wave2 rounds launched the wave2_extract kernel")
     check(joins == 4 * rounds, f"{label}: each of the {rounds} wave2 rounds launched the four wave2_join kernels")
@@ -418,7 +412,7 @@ def timed_render(vp, passes, smi, label, first=None):
     log(f"{label} 512^2 depth 6, {passes} passes: {dt:.3f} s, {(rays + shadow) / dt / 1e6:.4f} Mray/s, "
         f"rays {rays:.0f}, shadow rays {shadow:.0f}, overflow {overflow:.0f}, "
         f"peak mem {peak:.2f} GiB ({smi})")
-    launched = {k: v - counts0[k] for k, v in launch_counts().items() if v != counts0[k]}
+    launched = dict(launch_counts() - counts0)
     RENDERS.append(f"summary {label}: {(rays + shadow) / dt / 1e6:.4f} Mray/s, {dt / passes * 1e3:.1f} ms a pass, "
                    f"rays {rays:.0f} and shadow rays {shadow:.0f} in {passes} passes, kernel launches in "
                    f"{passes + 1} passes {launched}, overflow {overflow:.0f}, peak {peak:.2f} GiB")
@@ -564,10 +558,10 @@ def interior_render(path, dev, smi, label, textured, passes=4):
           "the traversal mode is the default (auto -> wave2)")
     windows = cluster_windows(cs, *camera_window(cam, dev), float(meta.scene_radius), dev, label)
     vp = Viewport(scene, meta, cam, ViewportParams(512, 512, seed=0), RenderParams(max_depth=6, mis=True), device=dev)
-    w2.mt_chunks.launches = 0
+    counts0 = launch_counts()
     (_, _, _, overflow, radiance), (extract, joins) = extract_on_every_round(
         lambda: timed_render(vp, passes, smi, f"{label} [wave2]"), f"{label} [wave2]")
-    launches = w2.mt_chunks.launches
+    launches = (launch_counts() - counts0)["wave2_mt"]
     log(f"{label} [wave2]: wave2_mt launches {launches} in {passes + 1} passes; mean radiance {radiance.mean():.6f}")
     check(launches > 0, f"the {label} render launched the wave2_mt kernel")
     check(overflow == 0, f"{label}: traversal overflow is 0")
@@ -604,9 +598,10 @@ def bvh_render(scene, meta, cam, dev, smi, label, wave2_mean, windows):
     the bvh_walk launches."""
     traverse.set_traversal_mode("bvh")
     vp = Viewport(scene, meta, cam, ViewportParams(512, 512, seed=0), RenderParams(max_depth=6, mis=True), device=dev)
-    bt.bvh_walk.launches = w2.mt_chunks.launches = 0
+    counts0 = launch_counts()
     _, _, _, overflow, radiance = timed_render(vp, 4, smi, f"{label} [bvh]")
-    launches, w2_launches = bt.bvh_walk.launches, w2.mt_chunks.launches
+    launched = launch_counts() - counts0
+    launches, w2_launches = launched["bvh_walk"], launched["wave2_mt"]
     traverse.set_traversal_mode("auto")
     rel = abs(float(radiance.mean()) - wave2_mean) / wave2_mean
     most = max(w[kind]["max_steps"] for w in windows.values() for kind in ("closest", "any-hit"))
@@ -692,9 +687,9 @@ def instanced_hall(baked, dev, smi):
         f"{bt.walk_budget(scene.bvh.num_nodes)}")
     walk_windows = bvh_windows(scene, meta, cam, dev, "interior800k_inst_mis shell")
     vp = Viewport(scene, meta, cam, ViewportParams(512, 512, seed=0), RenderParams(max_depth=6, mis=True), device=dev)
-    w2.mt_chunks.launches = 0
+    counts0 = launch_counts()
     dt, _, _, overflow, radiance = timed_render(vp, 1, smi, "interior800k_inst_mis [wave2]")
-    launches = w2.mt_chunks.launches
+    launches = (launch_counts() - counts0)["wave2_mt"]
     check(launches > 0 and overflow == 0, "interior800k_inst_mis: wave2_mt launched, overflow 0")
     check(bool(np.isfinite(radiance).all()) and radiance.mean() > 0, "interior800k_inst_mis: radiance finite, non-zero")
     # no profiled pass: it takes ~56 s of the script's time limit on an H100 host (its last reading is in PERF.md)
@@ -706,12 +701,13 @@ def instanced_hall(baked, dev, smi):
         f"after 2 passes each: relative difference {rel:.3e}")
     check(rel <= 0.01, "the instanced hall's mean radiance within 1% of the baked hall's")
     traverse.set_traversal_mode("bvh")
-    bt.bvh_walk.launches = w2.mt_chunks.launches = 0
+    counts0 = launch_counts()
     bvp = Viewport(scene, meta, cam, ViewportParams(512, 512, seed=0), RenderParams(max_depth=6, mis=True), device=dev)
     t0 = time.perf_counter()
     bvp.render(1)
     torch.cuda.synchronize()
-    both = (bt.bvh_walk.launches, w2.mt_chunks.launches)
+    launched = launch_counts() - counts0
+    both = (launched["bvh_walk"], launched["wave2_mt"])
     traverse.set_traversal_mode("auto")
     log(f"interior800k_inst_mis [bvh] one pass: {(time.perf_counter() - t0) * 1e3:.1f} ms; bvh_walk launches "
         f"{both[0]} (the shell), wave2_mt launches {both[1]} (the instances)")
@@ -736,9 +732,9 @@ def fwd_bwd_phase(hall, mesh, dev, smi):
     label = "interior800k_fwd_bwd"
     check(traverse.get_traversal_mode() == "auto" and not os.environ.get("RT_TRAVERSAL_MODE"),
           "the traversal mode is the default (auto -> wave2)")
-    w2.mt_chunks.launches = 0
+    counts0 = launch_counts()
     step, grads = tcg.time_fwd_bwd(scene, meta, cam, dev, log, f"{label} [wave2]")
-    launches = w2.mt_chunks.launches
+    launches = (launch_counts() - counts0)["wave2_mt"]
     check(launches > 0, f"the {label} step launched the wave2_mt kernel")
     vp, params = ViewportParams(256, 256, seed=0), RenderParams(max_depth=4, mis=True)
     device_ms = profiled(lambda: tcg.fwd_bwd(scene, meta, cam, vp, params)[1][0][:1].cpu(), f"{label} [wave2] call",
@@ -754,9 +750,10 @@ def fwd_bwd_phase(hall, mesh, dev, smi):
                    f"{step['saved_gib']:.3f} GiB, idle {idle:.3f}")
 
     traverse.set_traversal_mode("bvh")
-    bt.bvh_walk.launches = w2.mt_chunks.launches = 0
+    counts0 = launch_counts()
     bstep, bgrads = tcg.time_fwd_bwd(scene, meta, cam, dev, log, f"{label} [bvh]")
-    walk_launches, w2_launches = bt.bvh_walk.launches, w2.mt_chunks.launches
+    launched = launch_counts() - counts0
+    walk_launches, w2_launches = launched["bvh_walk"], launched["wave2_mt"]
     traverse.set_traversal_mode("auto")
     check(walk_launches > 0 and w2_launches == 0, f"the {label} step under bvh launched bvh_walk and not wave2_mt")
     tcg.gradients_agree(bgrads, grads, f"{label}: bvh against wave2", log, tcg.SCENE_PARAMS[:7])
@@ -819,9 +816,9 @@ def integrator_phases(hall, inst_scene, mt, dev, smi):
 
     # --- 19. the debug renderer and the traversal counters on the hall -----------
     t19 = time.perf_counter()
-    w2.mt_chunks.launches = 0
+    counts0 = launch_counts()
     counted = tci.debug_and_counters(hall.scene, hall.meta, hall.cam, dev, log, inst_scene=inst_scene)
-    mt["by_path"]["interior800k_mis count_traversal + debug"] = {"launches": w2.mt_chunks.launches,
+    mt["by_path"]["interior800k_mis count_traversal + debug"] = {"launches": (launch_counts() - counts0)["wave2_mt"],
                                                                  "windows_of": "interior800k_mis",
                                                                  "windows": mt["by_path"]["interior800k_mis"]["windows"]}
     RENDERS.append(f"summary interior800k_mis count_traversal 512^2: {counted['s_per_pass'] * 1e3:.1f} ms a pass, "
@@ -870,10 +867,10 @@ def fx_phase(dev, smi):
     check(any("moving" in k for k in windows), "a window of rays in a moving instance's object space")
     vp = Viewport(scene, meta, cam, ViewportParams(512, 512, seed=0, motion_blur_strength=1.0),
                   RenderParams(max_depth=6, mis=True, spectral=True), device=dev)
-    w2.mt_chunks.launches = 0
+    counts0 = launch_counts()
     first = []
     dt, rays, shadow, overflow, radiance = timed_render(vp, 1, smi, f"{label} [wave2]", first=first)
-    launches = w2.mt_chunks.launches
+    launches = (launch_counts() - counts0)["wave2_mt"]
     check(launches > 0 and overflow == 0, f"{label}: wave2_mt launched, overflow 0")
     check(bool(np.isfinite(radiance).all()) and radiance.mean() > 0, f"{label}: radiance finite, non-zero")
     # one timed pass and no profiled one: on an H100 host a pass takes ~16 s, a profiled one ~76 s of the
@@ -881,12 +878,13 @@ def fx_phase(dev, smi):
     log(f"{label} [wave2]: wave2_mt launches {launches} in 2 passes, {dt * 1e3:.1f} ms a pass")
 
     traverse.set_traversal_mode("bvh")
-    bt.bvh_walk.launches = w2.mt_chunks.launches = 0
+    counts0 = launch_counts()
     bvp = Viewport(scene, meta, cam, ViewportParams(512, 512, seed=0, motion_blur_strength=1.0),
                    RenderParams(max_depth=6, mis=True, spectral=True), device=dev)
     t0 = time.perf_counter()
     bmean = float(bvp.render(1).radiance().mean())
-    both = (bt.bvh_walk.launches, w2.mt_chunks.launches)
+    launched = launch_counts() - counts0
+    both = (launched["bvh_walk"], launched["wave2_mt"])
     traverse.set_traversal_mode("auto")
     rel = abs(bmean - first[0]) / first[0]
     log(f"{label} [bvh] one pass: {(time.perf_counter() - t0) * 1e3:.1f} ms; bvh_walk launches {both[0]} (the "
@@ -932,15 +930,16 @@ def frameloop_phase(hall, hall_radiance4, mesh, mt, dev):
                        f"launches {st['launches']}; first 4 passes bit-equal to the uniform render")
     log(f"phase 21 a (adaptive) wall time {time.perf_counter() - t21:.1f} s")
 
-    w2.mt_chunks.launches = 0
+    counts0 = launch_counts()
     ck = tfl.checkpoint_resume(mscene, mmeta, mcam, dev, log, os.path.join(ROOT, "raytracer_tpu_torch", "_build",
                                                                            "checkpoints"), "mesh200k_mis", straight)
-    mt["by_path"]["mesh200k_mis checkpoint resume"] = {"launches": w2.mt_chunks.launches, "windows_of": "mesh200k_mis",
+    mt["by_path"]["mesh200k_mis checkpoint resume"] = {"launches": (launch_counts() - counts0)["wave2_mt"],
+                                                       "windows_of": "mesh200k_mis",
                                                        "windows": mt["by_path"]["mesh200k_mis"]["windows"]}
     RENDERS.append(f"summary mesh200k_mis checkpoint 512^2: save {ck['save_s']:.3f} s, load {ck['load_s']:.3f} s, "
                    f"{ck['bytes']} bytes; resumed film bit-equal to the straight 4 passes")
 
-    w2.mt_chunks.launches = 0
+    counts0 = launch_counts()
     t0 = time.perf_counter()
     cpu_hall = tci.scene_on(hall.scene, "cpu"), tci.scene_on(hall.cam, "cpu")
     log(f"interior800k: a CPU copy of the hall in {time.perf_counter() - t0:.1f} s")
@@ -948,7 +947,7 @@ def frameloop_phase(hall, hall_radiance4, mesh, mt, dev):
                                     "interior800k", cpu_mode="bvh")
     check(any(v.tri_id >= 0 for v in path.vertices), "the hall pixel's replayed path hits a triangle")
     mt["by_path"]["interior800k path replay (one-ray windows)"] = {
-        "launches": w2.mt_chunks.launches, "windows_of": "interior800k_mis",
+        "launches": (launch_counts() - counts0)["wave2_mt"], "windows_of": "interior800k_mis",
         "windows": mt["by_path"]["interior800k_mis"]["windows"]}
     cs, cm, cc = tci.port_cornell(dev)
     ps, _, pc = tci.port_cornell("cpu")
@@ -1114,14 +1113,14 @@ def tools_phase(mesh, rows, dev, smi):
                                                         device=dev)
     check(big.num_nodes > 1_000_000, f"a BVH of {big.num_nodes} nodes over {len(tri_v)} triangles, built")
     leaf_cs = build_clusters(lv0, le1, le2, device=dev)
-    before, windows = bt.bvh_walk.launches, {}
+    before, windows = launch_counts(), {}
     for window, (bo, bd) in (("coherent", coherent_rays(w2.SUBWAVE)),
                              ("incoherent", incoherent_rays(w2.SUBWAVE, np.random.default_rng(5)))):
         walk = tct.check_bvh_walk(big, bo, bd, 4.0, dev, log, label=f"2M-triangle heightfield {window} window")
         walk["wave2"] = big_bvh_against_wave2(big, leaf_cs, bo, bd, dev, window)
         windows[window] = walk
     _add_path(rows, "bvh_walk", f"bvh over {big.num_nodes} nodes (2M-triangle heightfield)",
-              bt.bvh_walk.launches - before, windows=windows)
+              (launch_counts() - before)["bvh_walk"], windows=windows)
     row = rows["bvh_walk"]
     row["max_abs_err"] = max([row["max_abs_err"]] + [w[k]["max_abs_err"] for w in windows.values()
                                                      for k in ("closest", "any-hit")])
@@ -1144,11 +1143,11 @@ def tools_phase(mesh, rows, dev, smi):
 
     # --- e. the micro-benchmarks --------------------------------------------------------
     t0 = time.perf_counter()
-    before = w2.mt_chunks.launches
+    before = launch_counts()
     bench_lines = tmb.main([], out=log)
     check([r["bench"] for r in bench_lines] == list(tmb.BENCHES), "the eight micro-benchmarks ran")
     _add_path(rows, "wave2_mt", "microbench scene_traverse_mesh_bvh (2^20 rays, random_mesh_scene)",
-              w2.mt_chunks.launches - before)
+              (launch_counts() - before)["wave2_mt"])
     RENDERS.append("summary microbench: " + ", ".join(f"{r['bench']} {r['rate']} {r['unit']}" for r in bench_lines))
     log(f"phase 24 e (microbench) wall time {time.perf_counter() - t0:.1f} s")
 
@@ -1187,9 +1186,9 @@ def tools_phase(mesh, rows, dev, smi):
     log(f"phase 24 g (scaling) wall time {time.perf_counter() - t0:.1f} s")
 
     # --- h. the render probe, one pass -------------------------------------------------------
-    before = w2.mt_chunks.launches
+    before = launch_counts()
     probe = tpr.probe(mscene, mmeta, mcam, dev, n_passes=1, log=log)
-    _add_path(rows, "wave2_mt", "probe_render (mesh200k 512^2, 2 passes)", w2.mt_chunks.launches - before)
+    _add_path(rows, "wave2_mt", "probe_render (mesh200k 512^2, 2 passes)", (launch_counts() - before)["wave2_mt"])
     RENDERS.append(f"summary probe_render mesh200k 512^2: first pass {probe['first_s']:.2f} s, "
                    f"{probe['ms_a_pass']:.1f} ms a pass, {probe['mrays_per_sec']:.4f} Mray/s")
     for kernel in ("wave2_mt", "phase2_grid", "phase2_stream", "bvh_walk"):
@@ -1267,11 +1266,11 @@ def run():
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
     tcw2c.check_clean_environment(log)
 
-    # --- 2 + 6. build all five libraries, one nvcc each, together -----------
+    # --- 2 + 6. build every library, one nvcc each, together ---------------
     t0 = time.perf_counter()
-    cuda_build.build_kernel_libraries(KERNELS)
-    log(f"build: {len(KERNELS)} libraries in {time.perf_counter() - t0:.2f} s")
-    for kernel in KERNELS:
+    cuda_build.build_kernel_libraries(LIBRARIES)
+    log(f"build: {len(LIBRARIES)} libraries in {time.perf_counter() - t0:.2f} s")
+    for kernel in LIBRARIES:
         cuda_build.load_kernel_library(kernel)
         log(f"build [{kernel}] {cuda_build.BUILD_INFO[kernel]['seconds']:.2f} s\n{cuda_build.BUILD_INFO[kernel]['log']}")
 
@@ -1296,13 +1295,14 @@ def run():
           "the traversal mode is the default (auto -> wave2)")
     small_render_agrees(params, dev, "wave2")
     vp = Viewport(mscene, mmeta, mcam, ViewportParams(512, 512, seed=0), params, device=dev)
-    w2.mt_chunks.launches = 0
+    counts0 = launch_counts()
     (_, _, _, overflow, radiance), _ = extract_on_every_round(
         lambda: timed_render(vp, 4, smi, "mesh200k_mis [wave2]"), "mesh200k_mis [wave2]")
     mesh_mean = float(radiance.mean())
-    rows["wave2_mt"]["launches"] = w2.mt_chunks.launches  # warm-up + timed passes of this drive
-    log(f"mesh200k_mis [wave2]: wave2_mt launches {w2.mt_chunks.launches}")
-    check(w2.mt_chunks.launches > 0, "the mesh render launched the wave2_mt kernel")
+    launches = (launch_counts() - counts0)["wave2_mt"]
+    rows["wave2_mt"]["launches"] = launches  # warm-up + timed passes of this drive
+    log(f"mesh200k_mis [wave2]: wave2_mt launches {launches}")
+    check(launches > 0, "the mesh render launched the wave2_mt kernel")
     check(overflow == 0, "traversal overflow is 0")
     check(bool(np.isfinite(radiance).all()) and radiance.mean() > 0, "radiance finite with non-zero mean")
     profiled(lambda: vp.render(1), "mesh200k_mis [wave2] pass", named=("wave2_mt",))
@@ -1318,48 +1318,50 @@ def run():
     rows.update(tct.check_kernels(cs_set, dev, log, reps=20, plain_reps=5))
 
     # --- 8. block-candidate engines, kernel path against plain path --------
-    pt.phase2_grid.launches = pt.phase2_stream.launches = 0
+    counts0 = launch_counts()
     tct.check_engines(cs_set, dev, log)
-    rows["phase2_grid"]["launches"] = pt.phase2_grid.launches
-    log(f"engines: phase2_grid launches {pt.phase2_grid.launches}, phase2_stream launches "
-        f"{pt.phase2_stream.launches} (kernel-path calls only; the plain path launches nothing)")
-    check(pt.phase2_grid.launches > 0, "the pallas_cluster_* and _pallas_sorted_closest_hit engines launched "
+    launched = launch_counts() - counts0
+    rows["phase2_grid"]["launches"] = launched["phase2_grid"]
+    log(f"engines: phase2_grid launches {launched['phase2_grid']}, phase2_stream launches "
+        f"{launched['phase2_stream']} (kernel-path calls only; the plain path launches nothing)")
+    check(launched["phase2_grid"] > 0, "the pallas_cluster_* and _pallas_sorted_closest_hit engines launched "
                                        "the phase2_grid kernel")
 
     # --- 9. the sorted-pallas slice ----------------------------------------
     traverse.set_traversal_mode("sorted-pallas")
     small_render_agrees(params, dev, "sorted-pallas")
     vp = Viewport(mscene, mmeta, mcam, ViewportParams(512, 512, seed=0), params, device=dev)
-    pt.phase2_stream.launches = 0
-    w2.mt_chunks.launches = 0
+    counts0 = launch_counts()
     _, rays, shadow, overflow, radiance = timed_render(vp, 4, smi, "mesh200k_mis [sorted-pallas]")
-    rows["phase2_stream"]["launches"] = pt.phase2_stream.launches
-    log(f"mesh200k_mis [sorted-pallas]: phase2_stream launches {pt.phase2_stream.launches}, wave2_mt launches "
-        f"{w2.mt_chunks.launches}, overflow share {overflow / max(rays + shadow, 1):.4f} of rays + shadow rays")
-    check(pt.phase2_stream.launches > 0 and w2.mt_chunks.launches == 0,
+    launched = launch_counts() - counts0
+    rows["phase2_stream"]["launches"] = launched["phase2_stream"]
+    log(f"mesh200k_mis [sorted-pallas]: phase2_stream launches {launched['phase2_stream']}, wave2_mt launches "
+        f"{launched['wave2_mt']}, overflow share {overflow / max(rays + shadow, 1):.4f} of rays + shadow rays")
+    check(launched["phase2_stream"] > 0 and launched["wave2_mt"] == 0,
           "the sorted-pallas render launched the phase2_stream kernel and not wave2_mt")
     check(bool(np.isfinite(radiance).all()) and radiance.mean() > 0, "radiance finite with non-zero mean")
     profiled(lambda: vp.render(1), "mesh200k_mis [sorted-pallas] pass")
     # the same mode through the environment, which overrides set_traversal_mode
     traverse.set_traversal_mode("auto")
     os.environ["RT_TRAVERSAL_MODE"] = "sorted-pallas"
-    before = pt.phase2_stream.launches
+    before = launch_counts()
     env_vp = Viewport(mscene, mmeta, mcam, ViewportParams(128, 128, seed=0), params, device=dev).render(1)
     del os.environ["RT_TRAVERSAL_MODE"]
-    check(pt.phase2_stream.launches > before and bool(np.isfinite(env_vp.radiance()).all()),
+    check((launch_counts() - before)["phase2_stream"] > 0 and bool(np.isfinite(env_vp.radiance()).all()),
           "RT_TRAVERSAL_MODE=sorted-pallas reaches the stream kernel")
     check(traverse.get_traversal_mode() == "auto", "the traversal mode is back to auto")
 
     # --- 10. probes -----------------------------------------------------------
     err = tpl.check_add_one(dev, log)
-    add_one.launches = 0
+    counts0 = launch_counts()
     probe = tpl.probe_dispatch(dev, log)
+    launches = (launch_counts() - counts0)["add_one"]  # the empty kernel counts under empty_launch
     b_ms, b_by = bound_ms(2 * tpl.PROBE_SHAPE[0] * tpl.PROBE_SHAPE[1] * 4, tpl.PROBE_SHAPE[0] * tpl.PROBE_SHAPE[1])
     rows["add_one"] = {"name": "add_one", "route": "cuda", "source": "raytracer_tpu_torch/csrc/add_one.cu",
-                       "replaces": "tools/probe_r4.py:29", "launches": add_one.launches, "max_abs_err": err,
+                       "replaces": "tools/probe_r4.py:29", "launches": launches, "max_abs_err": err,
                        "ms": probe["add_one_grid_graph_us"] / 1e3, "plain_ms": probe["torch_add_graph_us"] / 1e3,
                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": probe["torch_add_graph_us"] / 1e3}
-    check(add_one.launches > 0, "the dispatch probe launched the add_one kernel")
+    check(launches > 0, "the dispatch probe launched the add_one kernel")
     tpl.probe_mt_chunks(cs_set, dev, log)
 
     # --- 11. textures, env map and postprocess against the CPU ----------------

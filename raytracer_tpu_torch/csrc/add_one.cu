@@ -13,7 +13,7 @@
 //
 // What bounds it on the card: neither bytes nor operations but the launch
 // itself.  The array is 1 MiB in and 1 MiB out and stays in the 50 MB L2, so
-// the floor is what an empty kernel costs per launch (`empty_launch`, timed
+// the floor is what an empty kernel costs per launch (`empty_launch.cu`, timed
 // beside it by tools/torch_probe_launch.py).  The design keeps the kernel's
 // own time under that: 256 threads a block, 16 bytes a thread and access
 // (float4), a scalar path for the last partial tile and for pointers that
@@ -44,8 +44,6 @@ __global__ void __launch_bounds__(kThreads) add_one_kernel(const float* __restri
   }
 }
 
-__global__ void empty_kernel() {}
-
 }  // namespace
 
 // Launches o = x + 1 over n floats on `stream`: one thread block per tile of
@@ -68,11 +66,5 @@ extern "C" int add_one_launch(const void* x, void* o, int n, int grid, void* str
   auto kernel = vec ? add_one_kernel<true> : add_one_kernel<false>;
   kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<float*>(o), n);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Launches a kernel that does nothing on `stream`: the floor of a launch.
-extern "C" int empty_launch(void* stream) {
-  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,9 +15,9 @@ gives it.
 ``bvh_walk`` is the wrapper: a CPU tensor takes the plain twin
 (``bvh_walk_reference``, the reference's lock-step walk in PyTorch, in
 chunks of ``WALK_CHUNK`` steps with one ``any(node >= 0)`` per chunk); a
-CUDA tensor launches ``csrc/bvh_walk.cu``, one thread a ray (counted in
-``bvh_walk.launches``), or raises.  Kernel and twin agree bit for bit.  The
-walk is detached from autograd, as in the reference.
+CUDA tensor launches ``csrc/bvh_walk.cu``, one thread a ray, or raises.
+Kernel and twin agree bit for bit.  The walk is detached from autograd, as
+in the reference.
 
 ``eval_tri_frame`` gathers the hit triangle's vertex normals, texture
 coordinates and material, for every traversal mode that returns no
@@ -26,7 +26,6 @@ interpolated attributes.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
@@ -35,6 +34,7 @@ from ..math.sampling import build_onb
 from ..math.vec import Vec3, cross, dot, normalize
 from ..scene.bvh import LEAF_SIZE
 from ..scene.types import BVHFlat, Triangles
+from .cuda_build import launch
 from .intersect import BIG, Hits, PrimFrame
 
 TRI_EPS = 1e-7
@@ -198,7 +198,7 @@ def bvh_walk(bvh: BVHFlat, origin: Vec3, direction: Vec3, t_max, any_hit: bool,
              count_steps: bool = False) -> WalkResult:
     """The skip-link walk of (N,) rays with (N,) float32 limits ``t_max``.
     CPU tensors take the plain twin; CUDA tensors launch
-    ``csrc/bvh_walk.cu`` (counted in ``bvh_walk.launches``) or raise."""
+    ``csrc/bvh_walk.cu`` or raise."""
     dev = origin.x.device
     if dev.type == "cpu":
         return bvh_walk_reference(bvh, origin, direction, t_max, any_hit, count_steps)
@@ -207,30 +207,17 @@ def bvh_walk(bvh: BVHFlat, origin: Vec3, direction: Vec3, t_max, any_hit: bool,
     n = origin.x.shape[0]
     rays, tables = _kernel_inputs(bvh, origin, direction, t_max)
     m = bvh.num_nodes
-    from .cuda_build import kernel_function
-
-    fn = kernel_function("bvh_walk", "bvh_walk_launch",
-                         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 13
-                         + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     # one allocation for t, tri, u, v / occluded and the step counts
     out = torch.empty((5, n), dtype=torch.float32, device=dev)
     t, tri, u, v = out[0], out[1].view(torch.int32), out[2], out[3]
     occ, steps = out[1].view(torch.int32), out[4].view(torch.int32)
-    ptr = lambda a, wanted: a.data_ptr() if wanted else None  # None: the kernel writes nothing there
-    rc = fn(*(a.data_ptr() for a in tables), m, walk_budget(m), *(a.data_ptr() for a in rays),
-            ptr(t, not any_hit), ptr(tri, not any_hit), ptr(u, not any_hit), ptr(v, not any_hit),
-            ptr(occ, any_hit), ptr(steps, count_steps), n, int(any_hit),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"bvh_walk kernel launch failed: cudaError {rc}")
-    bvh_walk.launches += 1
+    closest = (None,) * 4 if any_hit else (t, tri, u, v)  # None: the kernel writes nothing there
+    launch("bvh_walk", "bvh_walk_launch", *tables, m, walk_budget(m), *rays, *closest, occ if any_hit else None,
+           steps if count_steps else None, n, any_hit, device=dev)
     steps = steps if count_steps else None
     if any_hit:
         return WalkResult(occluded=occ != 0, steps=steps)
     return WalkResult(t=t, tri=tri, u=u, v=v, steps=steps)
-
-
-bvh_walk.launches = 0
 
 
 def _limits(origin: Vec3, t_max) -> torch.Tensor:

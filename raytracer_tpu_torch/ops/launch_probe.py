@@ -11,9 +11,9 @@ render path calls it.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
+
+from .cuda_build import launch
 
 
 def add_one_reference(x):
@@ -23,10 +23,9 @@ def add_one_reference(x):
 
 def add_one(x, grid: bool = False):
     """``x + 1`` for a contiguous float32 tensor.  CPU tensors take the plain
-    version; CUDA tensors launch ``csrc/add_one.cu`` (counted in
-    ``add_one.launches``) as one block per SM striding over the array
-    (``grid=False``) or as one thread block per 1,024 elements
-    (``grid=True``), or raise.  The kernel moves 16 bytes at a time where
+    version; CUDA tensors launch ``csrc/add_one.cu`` as one block per SM
+    striding over the array (``grid=False``) or as one thread block per
+    1,024 elements (``grid=True``), or raise.  The kernel moves 16 bytes at a time where
     both pointers allow it and single floats elsewhere."""
     if x.device.type == "cpu":
         return add_one_reference(x)
@@ -34,29 +33,16 @@ def add_one(x, grid: bool = False):
         raise ValueError(f"add_one: unsupported device {x.device}")
     if x.dtype != torch.float32 or not x.is_contiguous() or x.numel() >= 2 ** 31:
         raise ValueError("add_one: input does not match the kernel's dtype, size or layout")
-    from .cuda_build import kernel_function
-
-    fn = kernel_function("add_one", "add_one_launch",
-                         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
     out = torch.empty_like(x)
-    rc = fn(x.data_ptr(), out.data_ptr(), x.numel(), int(grid), torch.cuda.current_stream(x.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"add_one kernel launch failed: cudaError {rc}")
-    add_one.launches += 1
+    launch("add_one", "add_one_launch", x, out, x.numel(), grid, device=x.device)
     return out
 
 
-add_one.launches = 0
-
-
 def empty_launch(device):
-    """Launch a kernel that does nothing on ``device``'s current stream: what
-    a launch costs when the kernel costs nothing.  CUDA devices only."""
+    """Launch ``csrc/empty_launch.cu``, a kernel that does nothing, on
+    ``device``'s current stream: what a launch costs when the kernel costs
+    nothing.  CUDA devices only."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"empty_launch: unsupported device {device}")
-    from .cuda_build import kernel_function
-
-    rc = kernel_function("add_one", "empty_launch", [ctypes.c_void_p])(torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"empty kernel launch failed: cudaError {rc}")
+    launch("empty_launch", "empty_launch", device=device)

@@ -37,13 +37,12 @@ improve them.  Traversal is detached from autograd.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..math.vec import Vec3
 from ..scene.clusters import ClusterSet
 from .cluster_traverse import HIT_EPS, TRI_EPS, nearest_first, per_ray, slab_inv, slab_test
+from .cuda_build import launch
 from .intersect import BIG
 
 RB_SUB = 8  # ray-block rows
@@ -275,24 +274,13 @@ def _check_phase2_inputs(name, cand, entry, rays, dev):
         raise ValueError(f"{name}: inputs do not match the kernel's dtypes, shapes, device or layout")
 
 
-def _launch_phase2(name, fn_name, tables, cand, entry, rays, ints):
-    """Allocate (t, tri, u, v), launch ``lib.<fn_name>`` on the current
-    stream and raise when the launch is refused."""
-    from .cuda_build import kernel_function
-
-    dev = rays[0].device
-    n_ptr = 2 + len(tables) + len(rays) + 4
-    fn = kernel_function(name, fn_name, [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
+def _launch_phase2(name, tables, cand, entry, rays, ints):
+    """Allocate (t, tri, u, v) and launch ``csrc/<name>.cu``."""
     t = torch.empty_like(rays[0])
     tri = torch.empty_like(rays[0], dtype=torch.int32)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
-    ptr = lambda a: ctypes.c_void_p(a.data_ptr())
-    rc = fn(ptr(cand), ptr(entry), *(ptr(a) for a in tables), *(ptr(a) for a in rays),
-            ptr(t), ptr(tri), ptr(u), ptr(v), *ints,
-            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    launch(name, name + "_launch", cand, entry, *tables, *rays, t, tri, u, v, *ints, device=t.device)
     return t, tri, u, v
 
 
@@ -336,7 +324,7 @@ def phase2_grid_reference(cand, entry, tri_block, tri_id, ox, oy, oz, dx, dy, dz
 def phase2_grid(cand, entry, tri_block, tri_id, ox, oy, oz, dx, dy, dz, tm):
     """Phase 2 over a (B, kb) candidate table, every candidate visited or
     skipped.  CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/phase2_grid.cu`` (counted in ``phase2_grid.launches``) or raise."""
+    ``csrc/phase2_grid.cu`` or raise."""
     rays = (ox, oy, oz, dx, dy, dz, tm)
     dev = ox.device
     if dev.type == "cpu":
@@ -352,13 +340,7 @@ def phase2_grid(cand, entry, tri_block, tri_id, ox, oy, oz, dx, dy, dz, tm):
     if not ok:
         raise ValueError("phase2_grid: cluster tables do not match the kernel's dtypes, shapes (k a multiple of 4), "
                          "device, layout or 16-byte alignment")
-    out = _launch_phase2("phase2_grid", "phase2_grid_launch", (tri_block, tri_id), cand, entry, rays,
-                         (cand.shape[0], cand.shape[1], k))
-    phase2_grid.launches += 1
-    return out
-
-
-phase2_grid.launches = 0
+    return _launch_phase2("phase2_grid", (tri_block, tri_id), cand, entry, rays, (cand.shape[0], cand.shape[1], k))
 
 
 def phase2_stream_reference(cand, entry, stream_block, ox, oy, oz, dx, dy, dz, tm, k: int, any_hit: bool,
@@ -418,8 +400,8 @@ def phase2_stream_reference(cand, entry, stream_block, ox, oy, oz, dx, dy, dz, t
 
 def phase2_stream(cand, entry, stream_block, ox, oy, oz, dx, dy, dz, tm, k: int, any_hit: bool):
     """Phase 2 as one early-ending candidate loop per block.  CPU tensors
-    take the plain version; CUDA tensors launch ``csrc/phase2_stream.cu``
-    (counted in ``phase2_stream.launches``) or raise."""
+    take the plain version; CUDA tensors launch ``csrc/phase2_stream.cu`` or
+    raise."""
     rays = (ox, oy, oz, dx, dy, dz, tm)
     dev = ox.device
     if dev.type == "cpu":
@@ -435,13 +417,8 @@ def phase2_stream(cand, entry, stream_block, ox, oy, oz, dx, dy, dz, tm, k: int,
     if not ok:
         raise ValueError("phase2_stream: stream_block does not match the kernel's dtype, shape, device, layout or "
                          "16-byte alignment")
-    out = _launch_phase2("phase2_stream", "phase2_stream_launch", (stream_block,), cand, entry, rays,
-                         (cand.shape[0], cand.shape[1], k, stream_block.shape[1] * RB_LANE, int(any_hit)))
-    phase2_stream.launches += 1
-    return out
-
-
-phase2_stream.launches = 0
+    return _launch_phase2("phase2_stream", (stream_block,), cand, entry, rays,
+                          (cand.shape[0], cand.shape[1], k, stream_block.shape[1] * RB_LANE, any_hit))
 
 
 # --------------------------------------------------------------------------

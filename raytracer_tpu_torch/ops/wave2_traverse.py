@@ -53,7 +53,6 @@ autograd graph, as in the reference.
 
 from __future__ import annotations
 
-import ctypes
 import os
 from typing import NamedTuple
 
@@ -64,6 +63,7 @@ from ..scene.clusters import SUB_PER_SUPER, ClusterSet
 from ..utils.logger import log_info, log_warning
 from ..utils.profiler import count, count_device, host_sync, span, tracing
 from .cluster_traverse import slab_inv as _inv
+from .cuda_build import launch
 from .intersect import BIG
 
 TRI_EPS = 1e-7
@@ -81,17 +81,6 @@ KC_FTB = 4  # the same, front to back: most rays resolve on their few nearest su
 BIGF = 3.0e38
 IMAX = 2**31 - 1
 _P1_CHUNK_ELEMS = 1 << 26  # bound on one (rays x Cs) slab-test block
-# wave2_mt_launch: 15 pointers, (b2, rows, cs, k, any_hit), the stream
-MT_ARGTYPES = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-# wave2_extract_launch: 11 pointers, (n, cs, kc), the stream
-EXTRACT_ARGTYPES = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-# wave2_join_<name>_launch of csrc/wave2_join.cu: pointers, ints, the stream
-JOIN_ARGTYPES = {
-    "key": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p],  # (n, kc, cs, p_pad, key_shift)
-    "runs": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],  # (p_pad, cs, key_shift, chunk)
-    "place": [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6 + [ctypes.c_void_p],  # (b2, kc, p, p_pad, cs, chunk)
-    "select": [ctypes.c_void_p] * 18 + [ctypes.c_int] * 5 + [ctypes.c_void_p],  # (n, kc, cs, ftb, any_hit)
-}
 
 # windows traced, rounds run (first and continuation), continuation
 # iterations, the most in one window, (ray, candidate) pair slots, host syncs
@@ -183,9 +172,8 @@ def p1_extract_reference(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tl, cursor,
 def _p1_extract(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tl, cursor, kc: int):
     """Candidate extraction (``p1_extract_reference`` says what it returns).
     CPU tensors take the plain twin; CUDA tensors launch
-    ``csrc/wave2_extract.cu`` (counted in ``_p1_extract.launches``) or raise.
-    Counts ``wave2.box_tests`` (rays x Cs) and, for a launch,
-    ``wave2.extract_launches``."""
+    ``csrc/wave2_extract.cu`` or raise.  Counts ``wave2.box_tests`` (rays x
+    Cs)."""
     n, cs = ox.shape[0], cs_set.num_supers
     count("wave2.box_tests", n * cs)
     dev = ox.device
@@ -204,22 +192,11 @@ def _p1_extract(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tl, cursor, kc: int)
     )
     if not ok:
         raise ValueError("_p1_extract: inputs do not match the kernel's dtypes, shapes, device or layout")
-    from .cuda_build import kernel_function
-
-    fn = kernel_function("wave2_extract", "wave2_extract_launch", EXTRACT_ARGTYPES)
     # one allocation for both results: cand (n, kc), then rem (n,)
     out = torch.empty((n * (kc + 1),), dtype=torch.int32, device=dev)
     cand, rem = out[:n * kc].view(n, kc), out[n * kc:]
-    rc = fn(*(a.data_ptr() for a in ins), cand.data_ptr(), rem.data_ptr(), n, cs, kc,
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"wave2_extract kernel launch failed: cudaError {rc}")
-    _p1_extract.launches += 1
-    count("wave2.extract_launches")
+    launch("wave2_extract", "wave2_extract_launch", *ins, cand, rem, n, cs, kc, device=dev)
     return cand, rem
-
-
-_p1_extract.launches = 0
 
 
 def _p1_extract_ftb(cs_set: ClusterSet, ox, oy, oz, dx, dy, dz, tl, cur_key, kc: int):
@@ -364,22 +341,12 @@ def pair_join_reference(cs_set: ClusterSet, cand, ox, oy, oz, dx, dy, dz, tl) ->
     return PairJoin(sidx, fidx, pairs, block_cluster)
 
 
-def _join_kernels():
-    """The launch functions of ``csrc/wave2_join.cu``: key, runs, place, select."""
-    from .cuda_build import kernel_function
-
-    return tuple(kernel_function("wave2_join", f"wave2_join_{name}_launch", argtypes)
-                 for name, argtypes in JOIN_ARGTYPES.items())
-
-
 def _pair_join(cs_set: ClusterSet, cand, ox, oy, oz, dx, dy, dz, tl) -> PairJoin:
     """Sort-join of the (N, kc) candidates into single-super chunks
     (``pair_join_reference`` says what it returns).  CPU tensors take the
     plain twin; CUDA tensors launch ``csrc/wave2_join.cu``'s key, runs and
-    place kernels around one ``torch.sort`` (counted in
-    ``_pair_join.launches`` and, under tracing, ``wave2.join_launches``) or
-    raise.  The kernels' join also gives ``slot_of_pair``, which the select
-    reads back through."""
+    place kernels around one ``torch.sort`` or raise.  The kernels' join
+    also gives ``slot_of_pair``, which the select reads back through."""
     dev = cand.device
     if dev.type == "cpu":
         return pair_join_reference(cs_set, cand, ox, oy, oz, dx, dy, dz, tl)
@@ -401,20 +368,13 @@ def _pair_join(cs_set: ClusterSet, cand, ox, oy, oz, dx, dy, dz, tl) -> PairJoin
     d_len = p_pad + _filler_budget(cs)
     b2 = d_len // CHUNK
     key_shift = _spatial_key_shift(cs)
-    key_fn, runs_fn, place_fn, _ = _join_kernels()
-    stream = torch.cuda.current_stream(dev).cuda_stream
 
     key = torch.empty((p_pad,), dtype=torch.int32, device=dev)
-    rc = key_fn(box.data_ptr(), cand.data_ptr(), *(a.data_ptr() for a in rays[:6]), key.data_ptr(), n, kc, cs, p_pad,
-                key_shift, stream)
-    if rc != 0:
-        raise RuntimeError(f"wave2_join key kernel launch failed: cudaError {rc}")
+    launch("wave2_join", "wave2_join_key_launch", box, cand, *rays[:6], key, n, kc, cs, p_pad, key_shift, device=dev)
     sk, perm = torch.sort(key, stable=True)
     runs = torch.empty((2, cs + 1), dtype=torch.int32, device=dev)  # start, then dstart
     start, dstart = runs[0], runs[1]
-    rc = runs_fn(sk.data_ptr(), start.data_ptr(), dstart.data_ptr(), p_pad, cs, key_shift, CHUNK, stream)
-    if rc != 0:
-        raise RuntimeError(f"wave2_join runs kernel launch failed: cudaError {rc}")
+    launch("wave2_join", "wave2_join_runs_launch", sk, start, dstart, p_pad, cs, key_shift, CHUNK, device=dev)
     if tracing():  # as the twin counts them
         count("wave2.pair_slots_sent", d_len)
         count_device("wave2.pair_slots_real", start[cs])
@@ -422,17 +382,9 @@ def _pair_join(cs_set: ClusterSet, cand, ox, oy, oz, dx, dy, dz, tl) -> PairJoin
     ints = torch.empty((p_pad + d_len + b2 + p,), dtype=torch.int32, device=dev)
     sidx, fidx, block_cluster, slot_of_pair = torch.split(ints, (p_pad, d_len, b2, p))
     planes = torch.empty((7, b2, ROWS, 128), dtype=torch.float32, device=dev)
-    rc = place_fn(perm.data_ptr(), start.data_ptr(), dstart.data_ptr(), *(a.data_ptr() for a in rays),
-                  sidx.data_ptr(), fidx.data_ptr(), planes.data_ptr(), block_cluster.data_ptr(), slot_of_pair.data_ptr(),
-                  b2, kc, p, p_pad, cs, CHUNK, stream)
-    if rc != 0:
-        raise RuntimeError(f"wave2_join place kernel launch failed: cudaError {rc}")
-    _pair_join.launches += 3
-    count("wave2.join_launches", 3)
+    launch("wave2_join", "wave2_join_place_launch", perm, start, dstart, *rays, sidx, fidx, planes, block_cluster,
+           slot_of_pair, b2, kc, p, p_pad, cs, CHUNK, device=dev)
     return PairJoin(sidx, fidx, tuple(planes), block_cluster, slot_of_pair)
-
-
-_pair_join.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -537,8 +489,7 @@ def mt_chunks_reference(block_cluster, super_geom, super_sbox, ox, oy, oz, dx, d
 
 def mt_chunks(block_cluster, super_geom, super_sbox, ox, oy, oz, dx, dy, dz, tl, any_hit: bool):
     """Möller-Trumbore over sort-joined pair chunks.  CPU tensors take the
-    plain twin; CUDA tensors launch ``csrc/wave2_mt.cu`` (counted in
-    ``mt_chunks.launches``) or raise."""
+    plain twin; CUDA tensors launch ``csrc/wave2_mt.cu`` or raise."""
     pairs = (ox, oy, oz, dx, dy, dz, tl)
     dev = ox.device
     if dev.type == "cpu":
@@ -549,33 +500,21 @@ def mt_chunks(block_cluster, super_geom, super_sbox, ox, oy, oz, dx, dy, dz, tl,
     cs, rows8k, lanes = super_geom.shape
     k = rows8k // SUB_PER_SUPER
     ins = (block_cluster, super_geom, super_sbox) + pairs
-    ptrs = [a.data_ptr() for a in ins]
     ok = (
         block_cluster.dtype == torch.int32 and block_cluster.dim() == 1
         and super_geom.dtype == torch.float32 and lanes == 16 and k % 8 == 0 and 0 < k <= 128
         and super_sbox.dtype == torch.float32 and tuple(super_sbox.shape) == (cs, SUB_PER_SUPER, 8)
         and all(a.dtype == torch.float32 and tuple(a.shape) == (b2, ROWS, 128) for a in pairs)
         and all(a.device == dev and a.is_contiguous() for a in ins)
-        and ptrs[1] % 16 == 0 and ptrs[2] % 16 == 0  # the kernel reads geometry and boxes 16 bytes at a time
+        and super_geom.data_ptr() % 16 == 0 and super_sbox.data_ptr() % 16 == 0  # read 16 bytes at a time
     )
     if not ok:
         raise ValueError("mt_chunks: inputs do not match the kernel's dtypes, shapes, device, layout or alignment")
-    from .cuda_build import kernel_function
-
-    fn = kernel_function("wave2_mt", "wave2_mt_launch", MT_ARGTYPES)
     # one allocation for the five (b2, ROWS, 128) results; tri and done are its int32 views
     out = torch.empty((5, b2, ROWS, 128), dtype=torch.float32, device=dev)
     t, tri, u, v, done = out[0], out[1].view(torch.int32), out[2], out[3], out[4].view(torch.int32)
-    o0, plane = out.data_ptr(), b2 * CHUNK * 4
-    rc = fn(*ptrs, o0, o0 + plane, o0 + 2 * plane, o0 + 3 * plane, o0 + 4 * plane, b2, ROWS, cs, k, int(any_hit),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"wave2_mt kernel launch failed: cudaError {rc}")
-    mt_chunks.launches += 1
+    launch("wave2_mt", "wave2_mt_launch", *ins, t, tri, u, v, done, b2, ROWS, cs, k, any_hit, device=dev)
     return t, tri, u, v, done
-
-
-mt_chunks.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -635,8 +574,7 @@ def _select(cs: int, cand, join: PairJoin, outs, tl, cursor, any_hit: bool, ftb:
     """Each ray's result of a round (``select_reference`` says what it
     returns).  CPU tensors take the plain twin; CUDA tensors launch
     ``csrc/wave2_join.cu``'s select kernel, one thread a ray reading its
-    slots through ``join.slot_of_pair`` (counted in ``_select.launches``
-    and, under tracing, ``wave2.join_launches``), or raise."""
+    slots through ``join.slot_of_pair``, or raise."""
     dev = cand.device
     if dev.type == "cpu":
         return select_reference(cs, cand, join, outs, tl, cursor, any_hit, ftb, remaining, next_t, new_key)
@@ -656,24 +594,13 @@ def _select(cs: int, cand, join: PairJoin, outs, tl, cursor, any_hit: bool, ftb:
     if not ok:
         raise ValueError("_select: inputs do not match the kernel's dtypes, shapes, device or layout "
                          "(its join must come from the kernels)")
-    fn = _join_kernels()[3]
     f32 = torch.empty((4, n), dtype=torch.float32, device=dev)  # t, tri (int32 view), u, v
     t_out, tri_out, u_out, v_out = f32[0], f32[1].view(torch.int32), f32[2], f32[3]
     new_cursor = torch.empty((n,), dtype=torch.int32, device=dev)
     unresolved = torch.empty((n,), dtype=torch.bool, device=dev)
-    ptr = lambda a: a.data_ptr() if a is not None else None
-    rc = fn(cand.data_ptr(), slot.data_ptr(), *(o.data_ptr() for o in outs), tl.data_ptr(), cursor.data_ptr(),
-            ptr(remaining), ptr(next_t), ptr(new_key), t_out.data_ptr(), tri_out.data_ptr(), u_out.data_ptr(),
-            v_out.data_ptr(), new_cursor.data_ptr(), unresolved.data_ptr(), n, kc, cs, int(ftb), int(any_hit),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"wave2_join select kernel launch failed: cudaError {rc}")
-    _select.launches += 1
-    count("wave2.join_launches")
+    launch("wave2_join", "wave2_join_select_launch", cand, slot, *outs, tl, cursor, remaining, next_t, new_key, t_out,
+           tri_out, u_out, v_out, new_cursor, unresolved, n, kc, cs, ftb, any_hit, device=dev)
     return t_out, tri_out, u_out, v_out, new_cursor, unresolved
-
-
-_select.launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -26,6 +26,7 @@ from raytracer_tpu.ops import bvh_traverse as ref_bt
 from raytracer_tpu.scene import bvh as ref_bvh
 from raytracer_tpu_torch.math.vec import Vec3
 from raytracer_tpu_torch.ops import bvh_traverse as bt
+from raytracer_tpu_torch.ops.cuda_build import launch_counts
 from raytracer_tpu_torch.scene import bvh as port_bvh
 
 N_RAYS = 4096
@@ -270,8 +271,9 @@ def test_build_hands_the_threading_each_node_s_children_and_axis():
 
 
 def test_walk_wrapper_raises_on_a_device_without_a_kernel():
+    before = launch_counts()
     (_, _), (_, got) = _both(7, seed=1)
     meta = lambda: torch.empty(8, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         bt.bvh_walk(got, Vec3(meta(), meta(), meta()), Vec3(meta(), meta(), meta()), meta(), any_hit=False)
-    assert bt.bvh_walk.launches == 0  # CPU tensors take the twin and launch nothing
+    assert launch_counts() == before  # CPU tensors take the twin and launch nothing

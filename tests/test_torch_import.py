@@ -253,11 +253,13 @@ def test_mt_wrapper_raises_on_a_device_without_a_kernel():
 
 
 def test_add_one_wrapper_raises_on_a_device_without_a_kernel():
+    from raytracer_tpu_torch.ops.cuda_build import launch_counts
     from raytracer_tpu_torch.ops.launch_probe import add_one
 
+    before = launch_counts()
     with pytest.raises(ValueError, match="unsupported device"):
         add_one(torch.empty((2048, 128), device="meta"))
     x = torch.arange(2048 * 128, dtype=torch.float32).reshape(2048, 128)
     for grid in (False, True):
         assert torch.equal(add_one(x, grid=grid), x + 1.0)  # CPU tensors take the plain version
-    assert add_one.launches == 0
+    assert launch_counts() == before

@@ -33,6 +33,7 @@ import torch
 from tests import torch_one_thread  # noqa: F401  (one torch thread for this process)
 from raytracer_tpu_torch.math.transform import RigidTransform
 from raytracer_tpu_torch.ops import wave2_traverse as w2
+from raytracer_tpu_torch.ops.cuda_build import launch_counts
 from raytracer_tpu_torch.render.renderer import Viewport, ViewportParams
 from raytracer_tpu_torch.integrators.path_tracer import RenderParams
 from raytracer_tpu_torch.scene.camera import make_camera
@@ -174,11 +175,11 @@ def test_edge_rays_reach_the_edges(meshes):
 def test_wrapper_takes_the_twin_on_the_cpu_and_raises_elsewhere(meshes):
     cs_set = meshes["mesh2k"]
     args = _inputs(cs_set, "edge", "mixed", seed=2)
-    launches = w2._p1_extract.launches
+    launches = launch_counts()
     got = w2._p1_extract(cs_set, *args, 16)
     want = w2.p1_extract_reference(cs_set, *args, 16)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert w2._p1_extract.launches == launches
+    assert launch_counts() == launches
     meta = lambda *shape, dt=torch.float32: torch.empty(shape, dtype=dt, device="meta")
     fake = SimpleNamespace(num_supers=40, super_box=meta(40, 6))
     with pytest.raises(ValueError, match="unsupported device"):
@@ -195,7 +196,7 @@ def test_counters_of_a_small_wave2_render(monkeypatch):
     twin = w2.p1_extract_reference
     monkeypatch.setattr(w2, "p1_extract_reference",
                         lambda cs_set, ox, *a: calls.append(ox.shape[0] * cs_set.num_supers) or twin(cs_set, ox, *a))
-    launches = w2._p1_extract.launches
+    launches = launch_counts()
     profiler.reset()
     try:
         with profiler.enable():
@@ -206,4 +207,4 @@ def test_counters_of_a_small_wave2_render(monkeypatch):
         profiler.reset()
     assert rounds == len(calls) > 0
     assert counters["wave2.box_tests"] == sum(calls)
-    assert counters.get("wave2.extract_launches", 0) == 0 == w2._p1_extract.launches - launches
+    assert counters.get("launches.wave2_extract", 0) == 0 and launch_counts() == launches

@@ -32,7 +32,7 @@ and unequal tri.
 
 Also: the wrappers ``_pair_join`` and ``_select`` take the twins for CPU
 tensors and raise on a device without the kernels, and on the CPU
-``wave2.join_launches`` stays 0 under tracing.
+``launches.wave2_join`` stays 0 under tracing.
 """
 
 import os
@@ -47,6 +47,7 @@ from tests import torch_one_thread  # noqa: F401  (one torch thread for this pro
 from raytracer_tpu_torch.integrators.path_tracer import RenderParams
 from raytracer_tpu_torch.math.transform import RigidTransform
 from raytracer_tpu_torch.ops import wave2_traverse as w2
+from raytracer_tpu_torch.ops.cuda_build import launch_counts
 from raytracer_tpu_torch.render.renderer import Viewport, ViewportParams
 from raytracer_tpu_torch.scene.camera import make_camera
 from raytracer_tpu_torch.scene.clusters import build_clusters
@@ -500,7 +501,7 @@ def test_wrappers_take_the_twins_on_the_cpu_and_raise_elsewhere(meshes):
     n, kc = 500, 4
     rays = _rays(n, seed=9)
     cand = _cand(cs_set, rays, kc, "extracted", seed=0)
-    launches = w2._pair_join.launches, w2._select.launches
+    launches = launch_counts()
     got, want = w2._pair_join(cs_set, cand, *rays), w2.pair_join_reference(cs_set, cand, *rays)
     assert got.slot_of_pair is None and torch.equal(got.fidx, want.fidx) and torch.equal(got.sidx, want.sidx)
     outs = w2.mt_chunks_reference(got.block_cluster, cs_set.super_geom, cs_set.super_sbox, *got.pairs, False)
@@ -509,7 +510,7 @@ def test_wrappers_take_the_twins_on_the_cpu_and_raise_elsewhere(meshes):
     a = w2._select(cs_set.num_supers, cand, got, outs, rays[6], cursor, False, False, rem)
     b = w2.select_reference(cs_set.num_supers, cand, want, outs, rays[6], cursor, False, False, rem)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
-    assert (w2._pair_join.launches, w2._select.launches) == launches
+    assert launch_counts() == launches
 
     meta = lambda *shape, dt=torch.float32: torch.empty(shape, dtype=dt, device="meta")
     fake = SimpleNamespace(num_supers=40, super_box=meta(40, 6))
@@ -522,11 +523,11 @@ def test_wrappers_take_the_twins_on_the_cpu_and_raise_elsewhere(meshes):
 
 def test_no_join_launch_on_the_cpu_under_tracing():
     """A small render under tracing: the join runs every round, on the twin,
-    and ``wave2.join_launches`` stays 0; the pair-slot counters still count."""
+    and ``launches.wave2_join`` stays 0; the pair-slot counters still count."""
     scene, meta = random_mesh_scene(2000, seed=1, device="cpu")
     cam = make_camera(RigidTransform(), device="cpu")
     vp = Viewport(scene, meta, cam, ViewportParams(8, 8, seed=3), RenderParams(max_depth=2, mis=True), device="cpu")
-    launches = w2._pair_join.launches + w2._select.launches
+    launches = launch_counts()
     profiler.reset()
     try:
         with profiler.enable():
@@ -536,4 +537,4 @@ def test_no_join_launch_on_the_cpu_under_tracing():
     finally:
         profiler.reset()
     assert joins > 0 and counters["wave2.pair_slots_sent"] > counters["wave2.pair_slots_real"] > 0
-    assert counters.get("wave2.join_launches", 0) == 0 == w2._pair_join.launches + w2._select.launches - launches
+    assert counters.get("launches.wave2_join", 0) == 0 and launch_counts() == launches

@@ -55,6 +55,7 @@ from raytracer_tpu_torch.math import packed  # noqa: E402
 from raytracer_tpu_torch.math.vec import Vec3  # noqa: E402
 from raytracer_tpu_torch.ops import traverse  # noqa: E402
 from raytracer_tpu_torch.ops import wave2_traverse as w2  # noqa: E402
+from raytracer_tpu_torch.ops.cuda_build import launch_counts  # noqa: E402
 from raytracer_tpu_torch.render.adaptive import AdaptiveSettings, AdaptiveViewport  # noqa: E402
 from raytracer_tpu_torch.render.film import average_radiance  # noqa: E402
 from raytracer_tpu_torch.render.path_debug import debug_pixel_path  # noqa: E402
@@ -79,7 +80,7 @@ def adaptive_run(scene, meta, cam, dev, log, label, uniform4=None, size=512, pas
     ms a pass})."""
     av = AdaptiveViewport(scene, meta, cam, ViewportParams(size, size, seed=0), RenderParams(max_depth=depth, mis=True),
                           AdaptiveSettings(), device=dev)
-    w2.mt_chunks.launches = 0
+    counts0 = launch_counts()
     per_pass = []
     for p in range(passes):
         rays0 = av.total_rays
@@ -102,7 +103,7 @@ def adaptive_run(scene, meta, cam, dev, log, label, uniform4=None, size=512, pas
                 f"{'bit-equal' if same else 'DIFFERENT'} ({int((got != uniform4).sum())} values apart, largest "
                 f"difference {float(np.abs(got - uniform4).max()):.3e})")
             check(same, f"{label}: the adaptive render's first 4 passes equal the uniform render bit for bit", log)
-    launches = w2.mt_chunks.launches
+    launches = (launch_counts() - counts0)["wave2_mt"]
     pr = av.progress()
     check(bool(np.isfinite(av.radiance()).all()) and av.radiance().mean() > 0, f"{label}: adaptive radiance finite",
           log)

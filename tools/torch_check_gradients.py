@@ -54,6 +54,7 @@ from raytracer_tpu_torch.math.transform import RigidTransform  # noqa: E402
 from raytracer_tpu_torch.math.vec import Vec3  # noqa: E402
 from raytracer_tpu_torch.ops import wave2_traverse as w2  # noqa: E402
 from raytracer_tpu_torch.ops import wave_traverse as wv  # noqa: E402
+from raytracer_tpu_torch.ops.cuda_build import launch_counts  # noqa: E402
 from raytracer_tpu_torch.parallel.mesh import material_leaves, train_step  # noqa: E402
 from raytracer_tpu_torch.render.renderer import ViewportParams, trace_rows  # noqa: E402
 from raytracer_tpu_torch.scene import types as T  # noqa: E402
@@ -131,7 +132,7 @@ def time_fwd_bwd(scene, meta, cam, dev, log, label, size=256, depth=4, reps=3):
     warm = time.perf_counter() - t0
     rays = float(counters.num_rays) + float(counters.num_shadow_rays)
     check_finite(first, f"{label} warm-up", log)
-    launches0 = w2.mt_chunks.launches
+    counts0 = launch_counts()
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
@@ -140,7 +141,7 @@ def time_fwd_bwd(scene, meta, cam, dev, log, label, size=256, depth=4, reps=3):
     grads[0][:1].cpu()
     dt = (time.perf_counter() - t0) / reps
     peak = torch.cuda.max_memory_allocated(dev) / 2**30 if on_card else float("nan")
-    per_call = (w2.mt_chunks.launches - launches0) / reps
+    per_call = (launch_counts() - counts0)["wave2_mt"] / reps
     check_finite(grads, label, log)
     repeat = all(torch.equal(a, b) for a, b in zip(first, grads))
 

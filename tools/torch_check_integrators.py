@@ -70,7 +70,7 @@ from raytracer_tpu_torch.io.bmp import read_bmp  # noqa: E402
 from raytracer_tpu_torch.io.png import read_png  # noqa: E402
 from raytracer_tpu_torch.math.transform import RigidTransform  # noqa: E402
 from raytracer_tpu_torch.ops import traverse as trv  # noqa: E402
-from raytracer_tpu_torch.ops import wave2_traverse as w2  # noqa: E402
+from raytracer_tpu_torch.ops.cuda_build import launch_counts  # noqa: E402
 from raytracer_tpu_torch.ops.traverse import scene_hit_frame, scene_traversal_cost, scene_traverse  # noqa: E402
 from raytracer_tpu_torch.render.film import make_film  # noqa: E402
 from raytracer_tpu_torch.render.renderer import Viewport, ViewportParams, pixel_grid  # noqa: E402
@@ -379,7 +379,7 @@ def hall_integrators(scene, meta, cam, dev, log, smi, profiled, size=512, label=
                 film[0] = vcm_mod.render_pass_vcm(scene, meta, cam, film[0], 0, None, vpp, params, vcm)
             _sync(dev)
 
-        launches = w2.mt_chunks.launches
+        counts0 = launch_counts()
         if torch.device(dev).type == "cuda":
             torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -388,7 +388,7 @@ def hall_integrators(scene, meta, cam, dev, log, smi, profiled, size=512, label=
         peak = torch.cuda.max_memory_allocated() / 2 ** 30 if torch.device(dev).type == "cuda" else float("nan")
         radiance = film[0].sum.cpu().numpy()
         numbers = {"s_per_pass": dt, "rays": count["rays"], "shadow_rays": count["shadow"], "peak_gib": peak,
-                   "wave2_mt_launches": w2.mt_chunks.launches - launches, "mean": float(radiance.mean())}
+                   "wave2_mt_launches": (launch_counts() - counts0)["wave2_mt"], "mean": float(radiance.mean())}
         log(f"{label} [{name}] {size}^2, one pass: {dt:.3f} s, rays {count['rays']}, shadow rays with a positive "
             f"limit {count['shadow']}, {(count['rays'] + count['shadow']) / dt / 1e6:.4f} Mray/s, wave2_mt launches "
             f"{numbers['wave2_mt_launches']}, peak {peak:.2f} GiB, mean radiance {numbers['mean']:.6f} ({smi})")

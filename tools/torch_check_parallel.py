@@ -49,7 +49,7 @@ from torch_check_traverse import check  # noqa: E402
 from raytracer_tpu_torch.integrators.path_tracer import RenderParams  # noqa: E402
 from raytracer_tpu_torch.integrators.vcm import VcmParams, render_pass_vcm  # noqa: E402
 from raytracer_tpu_torch.io.scene_loader import load_scene  # noqa: E402
-from raytracer_tpu_torch.ops import wave2_traverse as w2  # noqa: E402
+from raytracer_tpu_torch.ops.cuda_build import launch_counts  # noqa: E402
 from raytracer_tpu_torch.parallel import mesh as pm  # noqa: E402
 from raytracer_tpu_torch.parallel.launch import run_ranks  # noqa: E402
 from raytracer_tpu_torch.render.film import make_film  # noqa: E402
@@ -75,7 +75,7 @@ def band_runs(mesh_scene, cornell, dev, mesh, size=512, train_size=64):
     vp, params = ViewportParams(size, size, seed=0), RenderParams(max_depth=6, mis=True)
     row0, rows = pm._band(mesh, size)
     film = pm.film_sharding(make_film(size, size, dev), mesh)
-    w2.mt_chunks.launches = 0
+    counts0 = launch_counts()
     total, ms = None, []
     for p in range(2):
         halton = torch.as_tensor(halton_frame_vector(p), device=dev)
@@ -86,7 +86,8 @@ def band_runs(mesh_scene, cornell, dev, mesh, size=512, train_size=64):
         ms.append((time.perf_counter() - t0) * 1e3)
         total = counters if total is None else type(counters)(*(a + b for a, b in zip(total, counters)))
     out = dict(row0=row0, rows=rows, band_sum=film.sum.cpu().numpy(), band_secondary=film.secondary_sum.cpu().numpy(),
-               counters=np.array([float(c) for c in total]), launches=w2.mt_chunks.launches, ms=np.array(ms))
+               counters=np.array([float(c) for c in total]), launches=(launch_counts() - counts0)["wave2_mt"],
+               ms=np.array(ms))
     cs, cm, cc = cornell
     _sync(dev)
     t0 = time.perf_counter()

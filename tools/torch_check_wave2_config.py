@@ -56,6 +56,7 @@ from torch_check_traverse import BIGF, check, coherent_rays, incoherent_rays, tw
 
 from raytracer_tpu_torch.integrators.path_tracer import RenderParams  # noqa: E402
 from raytracer_tpu_torch.ops import wave2_traverse as w2  # noqa: E402
+from raytracer_tpu_torch.ops.cuda_build import launch_counts  # noqa: E402
 from raytracer_tpu_torch.render.renderer import Viewport, ViewportParams  # noqa: E402
 
 # every wave2 setting of the environment; chip_smoke.py runs with none set
@@ -229,12 +230,12 @@ def frame_rays(scene, cam, n, dev):
 def timed_passes(scene, meta, cam, dev, timed, log, label, env=None, size=512):
     """A Viewport of the scene at ``size``^2, depth 6, MIS, seed 0, with
     ``env`` in the environment around its passes: 1 warm-up pass, then
-    ``timed`` passes ending with the film on the host.  ``wave2_mt``'s count
-    is set to 0 just before the first pass and read after the last."""
+    ``timed`` passes ending with the film on the host.  ``wave2_mt``'s
+    launches are counted from just before the first pass to after the last."""
     env = env or {}
     vp = Viewport(scene, meta, cam, ViewportParams(size, size, seed=0), RenderParams(max_depth=6, mis=True), device=dev)
     with mock.patch.dict(os.environ, env):
-        w2.mt_chunks.launches = 0
+        counts0 = launch_counts()
         w2.reset_stats()
         t0 = time.perf_counter()
         vp.render(1)
@@ -246,7 +247,7 @@ def timed_passes(scene, meta, cam, dev, timed, log, label, env=None, size=512):
             vp.render(timed)
         radiance = vp.radiance()
         dt = time.perf_counter() - t0
-        launches = w2.mt_chunks.launches
+        launches = (launch_counts() - counts0)["wave2_mt"]
     after = vp.progress()
     rays = after["total_rays"] - before["total_rays"] + after["total_shadow_rays"] - before["total_shadow_rays"]
     out = {"ms": dt / max(timed, 1) * 1e3, "mrays_per_sec": rays / dt / 1e6 if timed else 0.0, "warm_s": warm,

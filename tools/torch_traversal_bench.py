@@ -43,6 +43,7 @@ from raytracer_tpu_torch.ops import cluster_traverse as ct  # noqa: E402
 from raytracer_tpu_torch.ops import pallas_traverse as pt  # noqa: E402
 from raytracer_tpu_torch.ops import wave2_traverse as w2  # noqa: E402
 from raytracer_tpu_torch.ops import wave_traverse as wv  # noqa: E402
+from raytracer_tpu_torch.ops.cuda_build import launch_counts  # noqa: E402
 from raytracer_tpu_torch.scene.bvh import build_bvh_over_triangles  # noqa: E402
 from raytracer_tpu_torch.scene.clusters import build_clusters  # noqa: E402
 
@@ -73,11 +74,6 @@ def make_mesh(t, rng, spread=4.0, size=0.12):
     tri = verts[faces]  # (F, 3, 3)
     v0 = tri[:, 0]
     return v0, tri[:, 1] - v0, tri[:, 2] - v0
-
-
-def launch_counts() -> dict:
-    return {"wave2_mt": w2.mt_chunks.launches, "phase2_grid": pt.phase2_grid.launches,
-            "phase2_stream": pt.phase2_stream.launches, "bvh_walk": bt.bvh_walk.launches}
 
 
 def _sync(dev):
@@ -165,7 +161,7 @@ class Bench:
                 torch.cuda.reset_peak_memory_stats()
             res, ms = _time(lambda: call(engine, ro, rd, tl), dev)
             peak = torch.cuda.max_memory_allocated() / 2**30 if dev.type == "cuda" else float("nan")
-            launches = {k: v - counts0[k] for k, v in launch_counts().items() if v != counts0[k]}
+            launches = dict(launch_counts() - counts0)
             hit = res[1] >= 0 if query == "closest" else res[0]
             ovf = res[-1]
             fig = {"ms": ms, "mrays_per_sec": n / ms / 1e3, "hit_share": float(hit.float().mean()),
