@@ -54,7 +54,13 @@ Phases (any failure exits non-zero before the last line):
     torch, through add_one in both launch forms and beside an empty kernel,
     mt_chunks at 64 (live, all-sentinel), 512, 1,024 and 4,096 chunks.
 
-11. textures, env map and postprocess against the CPU
+11. the texture kernel (csrc/textures.cu) against its plain twin on the
+    card (tools/torch_check_textures.py::check_texture_kernel): 2,073,600
+    lanes over the mixed table and over the textured hall's (1024^2
+    bitmaps), bit-equal or FAIL, one launch a call, the gradient route (u, v:
+    the twin's gradients bit-equal; texels and colors within 1e-5), the
+    kernel and the twin timed, the kernel's row of the table; then textures,
+    env map and postprocess against the CPU
     (tools/torch_check_textures.py): sample_texture_many over 2^20 lanes of
     mixed ids (three bitmaps in the three filters, checkerboard, noise with 1
     and 8 octaves, mix, const, INVALID_ID): texel fetches and checkerboard
@@ -95,8 +101,9 @@ Phases (any failure exits non-zero before the last line):
     textured floor slab, textured props, a lat-long sky on the background
     light): the same kernel, engine and render checks (2 timed passes, not
     4: a textured pass is slow, and phase 20 renders the textures again),
-    plus scene.textures and
-    scene.env_dist present and Viewport.image() a (512, 512, 3) uint8 array
+    plus scene.textures and scene.env_dist present, one traced pass whose
+    sample_texture_many calls each launched the textures kernel once, and
+    Viewport.image() a (512, 512, 3) uint8 array
     that is neither constant nor saturated; before it, a 32^2 render of the
     small textured scene on the card against the CPU.
 
@@ -349,11 +356,13 @@ from raytracer_tpu_torch.scene.bvh import build_bvh_over_triangles, bvh_stats  #
 from raytracer_tpu_torch.scene.clusters import build_clusters  # noqa: E402
 from raytracer_tpu_torch.scene.camera import generate_rays, make_camera  # noqa: E402
 from raytracer_tpu_torch.scene.presets import cornell_box, cornell_camera_kw  # noqa: E402
+from raytracer_tpu_torch.utils import profiler  # noqa: E402
 
 bench_mesh.BENCH_DIR = os.path.join(ROOT, "raytracer_tpu_torch", "_build", "bench_scene")
 INTERIOR_DIR = os.path.join(ROOT, "raytracer_tpu_torch", "_build", "interior")
 LOG_PATH = os.path.join(ROOT, "raytracer_tpu_torch", "_build", "chip_smoke.log")
-KERNELS = ("wave2_mt", "wave2_extract", "wave2_join", "phase2_grid", "phase2_stream", "add_one", "bvh_walk")
+KERNELS = ("wave2_mt", "wave2_extract", "wave2_join", "phase2_grid", "phase2_stream", "add_one", "bvh_walk",
+           "textures")
 LIBRARIES = KERNELS + ("empty_launch",)  # the empty kernel has no row: it is the dispatch probe's floor
 _LOG = []  # the open log file, once main() has opened it
 RENDERS = []  # one summary entry per timed render
@@ -566,9 +575,29 @@ def interior_render(path, dev, smi, label, textured, passes=4):
     check(launches > 0, f"the {label} render launched the wave2_mt kernel")
     check(overflow == 0, f"{label}: traversal overflow is 0")
     check(bool(np.isfinite(radiance).all()) and radiance.mean() > 0, f"{label}: radiance finite with non-zero mean")
-    profiled(lambda: vp.render(1), f"{label} [wave2] pass", named=("wave2_mt",))
+    texture_launches = texture_launches_per_call(vp, label) if textured else 0
+    profiled(lambda: vp.render(1), f"{label} [wave2] pass", named=("wave2_mt", "textures_kernel"))
     return vp, {"launches": launches, "extract_launches": extract, "join_launches": joins, "windows": windows,
-                "mean": float(radiance.mean())}, radiance
+                "mean": float(radiance.mean()), "texture_launches": texture_launches}, radiance
+
+
+def texture_launches_per_call(vp, label):
+    """One pass under tracing: the ``textures`` kernel's launches against
+    the ``sample_texture_many`` calls (its ``textures`` spans) and the
+    counter ``launches.textures``: one a call.  Returns the launches."""
+    profiler.reset()
+    counts0 = launch_counts()
+    with profiler.enable():
+        vp.render(1)
+        torch.cuda.synchronize()
+        counted = profiler.counters().get("launches.textures", 0)
+    calls = sum(1 for r in profiler.records() if r.name == "textures")
+    launched = (launch_counts() - counts0)["textures"]
+    profiler.reset()
+    log(f"{label}: one traced pass made {calls} sample_texture_many calls and {launched} textures kernel launches "
+        f"(counter launches.textures {counted})")
+    check(calls > 0 and launched == calls == counted, f"{label}: the textures kernel launched once a call")
+    return launched
 
 
 def bvh_windows(scene, meta, cam, dev, label):
@@ -1364,8 +1393,8 @@ def run():
     check(launches > 0, "the dispatch probe launched the add_one kernel")
     tpl.probe_mt_chunks(cs_set, dev, log)
 
-    # --- 11. textures, env map and postprocess against the CPU ----------------
-    tctex.check_all(dev, log)
+    # --- 11. textures (the kernel against its twin), env map and postprocess against the CPU ---
+    rows["textures"] = tctex.check_all(dev, log)
 
     # --- 12. the 800k-triangle interior, as the reference renders it ----------
     t0 = time.perf_counter()
@@ -1389,6 +1418,7 @@ def run():
           "the small textured scene has its atlas and its env distribution")
     vp, mt["by_path"]["interior800k_tex_mis"], _ = interior_render(
         torch_gen_interior.ensure_interior_tex(INTERIOR_DIR), dev, smi, "interior800k_tex_mis", True, passes=2)
+    rows["textures"]["launches"] = mt["by_path"]["interior800k_tex_mis"]["texture_launches"]
     t0 = time.perf_counter()
     image = vp.image()
     log(f"interior800k_tex_mis: Viewport.image() in {(time.perf_counter() - t0) * 1e3:.1f} ms: {image.shape} "

@@ -1,5 +1,5 @@
-"""Texture evaluation: vectorized bitmap gathers and inline procedural kinds
-(port of ``raytracer_tpu/ops/textures.py``).
+"""Texture evaluation: bitmap fetches and inline procedural kinds (port of
+``raytracer_tpu/ops/textures.py``).
 
 - bitmaps: nearest / bilinear / bilinear-smoothstep over wrapped UVs; all
   bitmaps live in one packed atlas so a per-ray fetch is one 2-D gather;
@@ -8,12 +8,18 @@
 - mix: lerp(texA, texB, weightTex.x) with one level of nesting.
 
 Texture id INVALID_ID resolves to constant 1.0 (a parameter is
-``constant * texture``).  Every lane is evaluated, whatever its id; under
-tracing each call is a ``textures`` span (``site``: ``material``,
-``normal``, ``env`` or ``decal``) and counts, by site, its lanes
+``constant * texture``).  ``sample_texture_many`` takes the plain twin,
+``sample_texture_many_reference``, on CPU tensors: vectorized PyTorch that
+evaluates every lane, whatever its id.  On CUDA tensors it launches
+``csrc/textures.cu``, one thread a lane, which computes the same floats lane
+by lane and evaluates only each lane's own kind, filter and octaves; where
+autograd asks for gradients, its backward is the twin's.  Under tracing
+each call is a ``textures`` span (``site``: ``material``, ``normal``,
+``env`` or ``decal``) and counts, by site, its lanes
 (``textures.lanes.<site>``) and, on the device, those with a texture
-(``textures.lanes_textured.<site>``).
-The integer hash works on uint32 values held in int64 tensors, as
+(``textures.lanes_textured.<site>``); the kernel's launches count as
+``launches.textures``.
+The twin's integer hash works on uint32 values held in int64 tensors, as
 ``sampler/sampler.py`` does, and is bit-equal to the reference's; the float
 math follows the reference's order of operations.
 """
@@ -35,6 +41,7 @@ from ..scene.types import (
     TextureAtlas,
 )
 from ..utils.profiler import count, count_device, span, tracing
+from .cuda_build import launch
 
 FILTER_NEAREST = 0
 FILTER_BILINEAR = 1
@@ -307,31 +314,102 @@ def _eval_non_mix(atlas: TextureAtlas, tid, u, v) -> Vec3:
     return out
 
 
+def sample_texture_many_reference(atlas: TextureAtlas, tex_ids, u, v) -> Vec3:
+    """Per-ray texture sample over mixed kinds; INVALID_ID lanes get 1.0.
+    The plain twin of ``csrc/textures.cu``: every lane evaluates every kind
+    the table has."""
+    valid = tex_ids != INVALID_ID
+    tid = torch.clamp_min(tex_ids, 0).long()
+    out = _eval_non_mix(atlas, tid, u, v)
+    if TEX_MIX in atlas.kinds_present:
+        # one level of mix nesting
+        is_mix = atlas.kind[tid] == TEX_MIX
+        va = _eval_non_mix(atlas, atlas.sub_a[tid], u, v)
+        vb = _eval_non_mix(atlas, atlas.sub_b[tid], u, v)
+        vw = _eval_non_mix(atlas, atlas.sub_w[tid], u, v)
+        mixed = va + (vb - va) * vw.x
+        out = Vec3(
+            torch.where(is_mix, mixed.x, out.x),
+            torch.where(is_mix, mixed.y, out.y),
+            torch.where(is_mix, mixed.z, out.z),
+        )
+    one = torch.ones_like(out.x)
+    return Vec3(
+        torch.where(valid, out.x, one),
+        torch.where(valid, out.y, one),
+        torch.where(valid, out.z, one),
+    )
+
+
+def _sample_kernel(atlas: TextureAtlas, tex_ids, u, v) -> torch.Tensor:
+    """One launch of ``csrc/textures.cu``: the (3, *u.shape) float32 RGB of
+    ``sample_texture_many_reference``.  Raises ValueError on inputs the
+    kernel does not take."""
+    dev = u.device
+    if dev.type != "cuda":
+        raise ValueError(f"sample_texture_many: unsupported device {dev}")
+    # the int32 columns, then the float32 colors, in the order textures_launch takes them
+    table = (atlas.kind, atlas.y0, atlas.height, atlas.width, atlas.filter_mode, atlas.octaves,
+             atlas.sub_a, atlas.sub_b, atlas.sub_w, *atlas.color_a, *atlas.color_b)
+    k = atlas.kind.shape[0]
+    data = atlas.data
+    ok = (
+        tex_ids.dtype == torch.int32 and u.dtype == torch.float32 and v.dtype == torch.float32
+        and tex_ids.shape == u.shape == v.shape and 0 < k
+        and data.dtype == torch.float32 and data.dim() == 3 and data.shape[2] == 3 and data.shape[1] > 0
+        and all(t.dtype == torch.int32 for t in table[:9]) and all(t.dtype == torch.float32 for t in table[9:])
+        and all(t.shape == (k,) for t in table)
+        and all(t.device == dev and t.is_contiguous() for t in (tex_ids, u, v, data, *table))
+    )
+    if not ok:
+        raise ValueError("sample_texture_many: inputs do not match the kernel's dtypes, shapes, device or layout")
+    out = torch.empty((3, *u.shape), dtype=torch.float32, device=dev)
+    kinds = sum(1 << kind for kind in atlas.kinds_present)
+    launch("textures", "textures_launch", tex_ids, u, v, data, *table, out, u.numel(), k, data.shape[1], kinds,
+           min(atlas.max_octaves, MAX_NOISE_OCTAVES), device=dev)
+    return out
+
+
+class _KernelWithTwinGrad(torch.autograd.Function):
+    """The kernel forward; backward differentiates the twin, recomputed on
+    detached inputs.  Inputs: the atlas, the ids, then the differentiable
+    tensors ``u``, ``v``, ``atlas.data``, ``color_a`` and ``color_b``."""
+
+    @staticmethod
+    def forward(ctx, atlas, tex_ids, u, v, *atlas_floats):
+        ctx.atlas = atlas
+        ctx.save_for_backward(tex_ids, u, v, *atlas_floats)
+        return _sample_kernel(atlas, tex_ids, u, v)
+
+    @staticmethod
+    def backward(ctx, grad):
+        tex_ids, *floats = ctx.saved_tensors
+        leaves = [t.detach().requires_grad_(need) for t, need in zip(floats, ctx.needs_input_grad[2:])]
+        u, v, data, ax, ay, az, bx, by, bz = leaves
+        atlas = ctx.atlas._replace(data=data, color_a=Vec3(ax, ay, az), color_b=Vec3(bx, by, bz))
+        with torch.enable_grad():
+            out = torch.stack(list(sample_texture_many_reference(atlas, tex_ids, u, v)))
+        wanted = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad, allow_unused=True))
+        return (None, None, *[next(grads) if t.requires_grad else None for t in leaves])
+
+
 def sample_texture_many(atlas: TextureAtlas, tex_ids, u, v, site: str = "material") -> Vec3:
     """Per-ray texture sample over mixed kinds; INVALID_ID lanes get 1.0.
-    ``site`` names the caller in the ``textures`` span."""
+    ``site`` names the caller in the ``textures`` span.  CPU tensors take
+    the plain twin; CUDA tensors launch ``csrc/textures.cu`` or raise, through
+    ``_KernelWithTwinGrad`` where grad mode is on and ``u``, ``v`` or a float
+    tensor of the atlas requires grad."""
     with span("textures", site=site):
-        valid = tex_ids != INVALID_ID
         if tracing():
+            valid = tex_ids != INVALID_ID
             count(f"textures.lanes.{site}", valid.numel())
             count_device(f"textures.lanes_textured.{site}", valid.sum())
-        tid = torch.clamp_min(tex_ids, 0).long()
-        out = _eval_non_mix(atlas, tid, u, v)
-        if TEX_MIX in atlas.kinds_present:
-            # one level of mix nesting
-            is_mix = atlas.kind[tid] == TEX_MIX
-            va = _eval_non_mix(atlas, atlas.sub_a[tid], u, v)
-            vb = _eval_non_mix(atlas, atlas.sub_b[tid], u, v)
-            vw = _eval_non_mix(atlas, atlas.sub_w[tid], u, v)
-            mixed = va + (vb - va) * vw.x
-            out = Vec3(
-                torch.where(is_mix, mixed.x, out.x),
-                torch.where(is_mix, mixed.y, out.y),
-                torch.where(is_mix, mixed.z, out.z),
-            )
-        one = torch.ones_like(out.x)
-        return Vec3(
-            torch.where(valid, out.x, one),
-            torch.where(valid, out.y, one),
-            torch.where(valid, out.z, one),
-        )
+        if u.device.type == "cpu":
+            return sample_texture_many_reference(atlas, tex_ids, u, v)
+        floats = (u, v, atlas.data, *atlas.color_a, *atlas.color_b)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in floats):
+            out = _KernelWithTwinGrad.apply(atlas, tex_ids, *floats)
+        else:
+            out = _sample_kernel(atlas, tex_ids, u, v)
+        return Vec3(out[0], out[1], out[2])

@@ -1,17 +1,25 @@
 """The texture stack, the env-map distribution and the postprocess pipeline
-on one device against the CPU.
+on one device against the CPU, and the texture kernel against its plain twin.
 
     python tools/torch_check_textures.py [cuda|cpu]
 
 (cuda by default; it exits when there is no card.)
 
-None of this is a hand-written kernel: it is plain PyTorch, and the check is
-that the device computes what the CPU computes.  ``check_textures`` samples
-2^20 lanes of mixed texture ids (three bitmaps in the three filters, a
-checkerboard, noise with 1 and 8 octaves, a mix, a constant and INVALID_ID):
-nearest texel fetches, the checkerboard, constants and invalid lanes must be
-bit-equal, everything else within ``ATOL``.  ``check_env`` holds ``sample_2d``
-/ ``pdf_2d`` (the picked texel equal in every lane)
+On CUDA tensors ``sample_texture_many`` launches the hand-written kernel
+``csrc/textures.cu``; the env map and the postprocess pipeline are plain
+PyTorch.  ``check_texture_kernel`` (card only) holds the kernel against the
+plain twin ``sample_texture_many_reference`` on the same card, bit for bit,
+at 2,073,600 lanes (a 1080p call) over two tables: the mixed one of
+``mixed_atlas`` and the textured hall's (``hall_atlas``: the 1024^2 bitmaps
+of ``benchmark/generators/hall_tex.py``), logging the lanes that differ if
+any do; checks one launch a call and the gradient route (``u`` and ``v``
+requiring grad give the twin's gradients); and times the kernel and the
+twin.  ``check_textures`` samples 2^20 lanes of mixed texture ids (three
+bitmaps in the three filters, a checkerboard, noise with 1 and 8 octaves, a
+mix, a constant and INVALID_ID) on the device and on the CPU: nearest texel
+fetches, the checkerboard, constants and invalid lanes must be bit-equal,
+everything else within ``ATOL``.  ``check_env`` holds ``sample_2d`` /
+``pdf_2d`` (the picked texel equal in every lane)
 and ``env_sample_direction``; ``check_postprocess`` runs each tonemapper with
 bloom on and asks ``to_u8`` within one step.  Each logs the time the device
 took; a failed check raises SystemExit through ``check``.
@@ -30,16 +38,25 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 
-from torch_check_traverse import check  # noqa: E402
+from torch_check_traverse import bound_ms, check, cuda_ms, kernel_ms  # noqa: E402
 
 from raytracer_tpu_torch.color.colorhelpers import TONEMAPPER_NAMES  # noqa: E402
+from raytracer_tpu_torch.io.scene_loader import load_scene  # noqa: E402
+from raytracer_tpu_torch.math.vec import Vec3  # noqa: E402
+from raytracer_tpu_torch.ops import cuda_build  # noqa: E402
 from raytracer_tpu_torch.math.distribution import make_distribution_2d, pdf_2d, sample_2d  # noqa: E402
 from raytracer_tpu_torch.ops import textures as tex  # noqa: E402
 from raytracer_tpu_torch.ops.lights import env_direction_pdf, env_sample_direction  # noqa: E402
 from raytracer_tpu_torch.render.postprocess import PostprocessParams, postprocess, to_u8  # noqa: E402
+from raytracer_tpu_torch.scene.types import INVALID_ID, TEX_CHECKERBOARD, TEX_CONST, TEX_MIX, TEX_NOISE  # noqa: E402
 
 ATOL = 1e-6  # filtered bitmaps, noise, mix, sampled positions and directions
 LANES = 1 << 20
+CALL_LANES = 1920 * 1080  # one of the textured hall's calls at 1080p
+GRAD_LANES = 1 << 16  # the twin's autograd graph holds ~3,800 tensors of the lanes
+HALL_TEX = os.path.join(ROOT, "benchmark", "generators", "hall_tex.py")
+HALL_DIR = os.path.join(ROOT, "raytracer_tpu_torch", "_build", "hall_tex_atlas")
+HALL_INVALID_SHARE = 0.556  # the hall's surface lanes without a texture (texture_lane_fill_pct 44.46)
 BIT_EQUAL = ("nearest", "checker", "const", "invalid")
 
 
@@ -126,6 +143,140 @@ def check_textures(dev, log=print, lanes=LANES):
     log("textures: bitmap + 4-octave noise table, " + ", ".join(f"{k} {v[0] * 1e3:.2f} ms" for k, v in times.items()))
 
 
+def hall_atlas(device):
+    """(atlas, name -> id) of the textured hall: ``hall_tex.write_small``
+    writes the hall's textures (1024^2 bitmaps, a 1024 x 512 sky, the
+    checkerboard, the 4-octave noise and the mix) over two small meshes,
+    and the port's loader builds the atlas from them."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("hall_tex_for_texture_check", HALL_TEX)
+    hall_tex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(hall_tex)
+    scene, _, _ = load_scene(hall_tex.write_small(HALL_DIR), strict=True, device=device)
+    return scene.textures, {f"row{i}": i for i in range(scene.textures.kind.shape[0])}
+
+
+def lane_ops(atlas, tex_ids: np.ndarray) -> float:
+    """Float operations the lanes' own kinds need (the kernel's arithmetic,
+    counted from its source): 0 for an INVALID_ID lane or a constant, ~6 a
+    checkerboard or nearest lane, 40 / 46 a bilinear / smoothstep lane, 60
+    an octave of noise plus 15, a mix its three subs plus 9."""
+    kind, fm, octv = (t.cpu().numpy() for t in (atlas.kind, atlas.filter_mode, atlas.octaves))
+    subs = [t.cpu().numpy() for t in (atlas.sub_a, atlas.sub_b, atlas.sub_w)]
+    loop = min(atlas.max_octaves, tex.MAX_NOISE_OCTAVES)
+
+    def non_mix(r):
+        if kind[r] == TEX_CHECKERBOARD and TEX_CHECKERBOARD in atlas.kinds_present:
+            return 6.0
+        if kind[r] == TEX_NOISE and TEX_NOISE in atlas.kinds_present:
+            return 60.0 * min(max(int(octv[r]), 0), loop) + 15.0
+        if kind[r] == TEX_CONST:
+            return 0.0
+        return 6.0 if fm[r] == tex.FILTER_NEAREST else (46.0 if fm[r] == tex.FILTER_BILINEAR_SMOOTHSTEP else 40.0)
+
+    per_row = [sum(non_mix(int(s[r])) for s in subs) + 9.0 if kind[r] == TEX_MIX and TEX_MIX in atlas.kinds_present
+               else non_mix(r) for r in range(kind.shape[0])]
+    rows, counts = np.unique(tex_ids[tex_ids != INVALID_ID], return_counts=True)
+    return float(sum(per_row[max(int(r), 0)] * c for r, c in zip(rows, counts)))
+
+
+def check_texture_kernel(dev, log=print, lanes=CALL_LANES):
+    """``csrc/textures.cu`` against ``sample_texture_many_reference`` on the
+    same card, on the mixed table and on the textured hall's: every output
+    bit-equal (or the differing lanes logged by id, and FAIL), one launch a
+    call, the gradient route's gradients equal to the twin's; the kernel's
+    and the twin's device times beside the kernel's bound.  Returns the
+    kernel's row of ``chip_smoke.py``'s table (its time on the hall's
+    table)."""
+    rng = np.random.default_rng(60)
+    row = {}
+    for label, (atlas, ids) in (("mixed", mixed_atlas(dev)), ("hall", hall_atlas(dev))):
+        rows = sorted(set(ids.values()) - {INVALID_ID})
+        tid_np = np.asarray(rows, np.int32)[rng.integers(0, len(rows), lanes)]
+        tid_np[rng.random(lanes) < (HALL_INVALID_SHARE if label == "hall" else 0.1)] = INVALID_ID
+        u = rng.uniform(-2.0, 3.0, lanes).astype(np.float32)
+        v = rng.uniform(-2.0, 3.0, lanes).astype(np.float32)
+        edges = np.array([0.0, 1.0, -1e-9, -0.25, 2.0, 1.0 / 1024, 1023.0 / 1024, 0.5, 1.0 / 21, 20.0 / 21,
+                          1.0 / 37, 0.99999994, -0.99999994, -1.0, 1.5], np.float32)
+        eu, ev = np.meshgrid(edges, edges)
+        k = eu.size
+        for j, r in enumerate(rows):  # every pair of edges on every row
+            u[j * k:(j + 1) * k], v[j * k:(j + 1) * k], tid_np[j * k:(j + 1) * k] = eu.ravel(), ev.ravel(), r
+        tid, du, dv = (torch.from_numpy(a).to(dev) for a in (tid_np, u, v))
+        before = cuda_build.launch_counts()
+        got = torch.stack(list(tex.sample_texture_many(atlas, tid, du, dv)))
+        torch.cuda.synchronize()
+        launched = (cuda_build.launch_counts() - before)["textures"]
+        if label == "mixed":
+            log(f"textures kernel build: {cuda_build.BUILD_INFO['textures']['log']}")
+        want = torch.stack(list(tex.sample_texture_many_reference(atlas, tid, du, dv)))
+        differ = (got.view(torch.int32) != want.view(torch.int32)).any(0).cpu().numpy()
+        log(f"textures kernel [{label}] {lanes} lanes, kinds {atlas.kinds_present}, {atlas.kind.shape[0]} rows, "
+            f"atlas {tuple(atlas.data.shape)}: {int(differ.sum())} lanes differ from the twin on {dev}"
+            + "".join(f"; id {i}: {int((differ & (tid_np == i)).sum())} of {int((tid_np == i).sum())}"
+                      for i in sorted(set(tid_np[differ].tolist()))))
+        if differ.any():
+            j = int(np.argmax(differ))
+            log(f"  first: lane {j}, id {tid_np[j]}, u {u[j]!r}, v {v[j]!r}: kernel {got[:, j].tolist()}, "
+                f"twin {want[:, j].tolist()}")
+        check(not differ.any(), f"textures kernel [{label}] bit-equal to its twin on {dev}", log)
+        check(launched == 1, f"textures kernel [{label}]: one launch a call ({launched})", log)
+        ms = kernel_ms(lambda: tex.sample_texture_many(atlas, tid, du, dv), "textures_kernel")
+        plain = cuda_ms(lambda: tex.sample_texture_many_reference(atlas, tid, du, dv), reps=3, warmup=1)
+        ops = lane_ops(atlas, tid_np)
+        b_ms, b_by = bound_ms(24.0 * lanes, ops)
+        log(f"textures kernel [{label}]: {ms:.4f} ms a call (device duration, median of 20), twin {plain:.3f} ms "
+            f"(events, median of 3); bound {b_ms:.4f} ms by {b_by} (24 B a lane in and out, texel reads left "
+            f"out; {ops:.3e} operations): {100.0 * b_ms / ms:.1f}% of it")
+        row = {"name": "textures", "route": "cuda", "source": "raytracer_tpu_torch/csrc/textures.cu",
+               "replaces": "none (raytracer_tpu/ops/textures.py::sample_texture_many, left to XLA)",
+               "launches": launched, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+               "bound_by": b_by, "library_ms": None}
+    check_texture_grad(dev, log)
+    return row
+
+
+def check_texture_grad(dev, log=print, lanes=GRAD_LANES):
+    """The gradient route: ``u`` and ``v`` requiring grad take
+    ``_KernelWithTwinGrad`` (the kernel forward, one launch), and the
+    gradients of a weighted sum are bit-equal to those autograd takes
+    through the twin.  Then the atlas's texels and colors requiring grad:
+    their gradients are scatter-adds over the lanes (the gathers'
+    backward), summed in no fixed order, so they are held within 1e-5 of
+    the twin's largest of each leaf."""
+    rng = np.random.default_rng(61)
+    atlas, ids = mixed_atlas(dev)
+    tid = torch.from_numpy(rng.integers(-1, len(ids) - 1, lanes).astype(np.int32)).to(dev)
+    u0, v0 = (torch.from_numpy(rng.uniform(-2.0, 3.0, lanes).astype(np.float32)).to(dev) for _ in range(2))
+    w = torch.from_numpy(rng.random((3, lanes), dtype=np.float32)).to(dev)
+
+    def grads(fn, wrt):
+        u, v = u0.clone().requires_grad_(wrt == "uv"), v0.clone().requires_grad_(wrt == "uv")
+        a = atlas
+        if wrt == "atlas":
+            a = atlas._replace(data=atlas.data.clone().requires_grad_(),
+                               color_a=Vec3(*(c.clone().requires_grad_() for c in atlas.color_a)),
+                               color_b=Vec3(*(c.clone().requires_grad_() for c in atlas.color_b)))
+        leaves = [t for t in (u, v, a.data, *a.color_a, *a.color_b) if t.requires_grad]
+        out = torch.stack(list(fn(a, tid, u, v)))
+        return out.detach(), torch.autograd.grad((out * w).sum(), leaves)
+
+    for wrt in ("uv", "atlas"):
+        before = cuda_build.launch_counts()
+        out, got = grads(tex.sample_texture_many, wrt)
+        launched = (cuda_build.launch_counts() - before)["textures"]
+        ref, want = grads(tex.sample_texture_many_reference, wrt)
+        exact = all(torch.equal(g, r) for g, r in zip(got, want))
+        rel = max(float((g - r).abs().max() / r.abs().max().clamp_min(1e-30)) for g, r in zip(got, want))
+        log(f"textures gradient route [{wrt}] {lanes} lanes: kernel launches {launched}, gradients bit-equal "
+            f"{exact}, max |gradient - twin's| over the twin's largest {rel:.3g}, nonzero "
+            f"{[int((g != 0).sum()) for g in got]}")
+        check(launched == 1 and torch.equal(out, ref) and (exact if wrt == "uv" else rel <= 1e-5),
+              f"textures gradient route [{wrt}]: the kernel forward, the twin's gradients "
+              f"({'bit-equal' if wrt == 'uv' else 'within 1e-5'})", log)
+
+
 def env_image(h=256, w=512):
     rng = np.random.default_rng(7)
     img = rng.random((h, w)) ** 4
@@ -194,9 +345,13 @@ def check_postprocess(dev, log=print, size=512):
 
 
 def check_all(dev, log=print, lanes=LANES):
+    """Every check of this file; returns the texture kernel's row on the
+    card, None on the CPU."""
+    row = check_texture_kernel(dev, log) if torch.device(dev).type == "cuda" else None
     check_textures(dev, log, lanes)
     check_env(dev, log, lanes)
     check_postprocess(dev, log)
+    return row
 
 
 if __name__ == "__main__":
