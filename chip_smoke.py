@@ -127,9 +127,11 @@ Phases (any failure exits non-zero before the last line):
     shell's cluster set and on each geometry's, the latter with the camera
     rays moved into the object space of one instance of it, and phase 14's
     bvh_walk checks on the shell's BVH; 512^2, depth 6, MIS under wave2 (1 warm-up + 1
-    timed pass; no profiled pass, for the time limit), overflow 0; the mean radiance within 1%
-    of the baked hall's at the same seed and passes; then one timed pass
-    under bvh, where the shell launches bvh_walk and the instances wave2_mt.
+    timed pass), overflow 0; one more pass traced and profiled: the top level's engine
+    queries (counter instances.queries) at most 2 a traversal that reached the instances
+    (one a shared mesh), and the device operations launched inside traverse.instances; the
+    mean radiance within 1% of the baked hall's at the same seed and passes; then one timed
+    pass under bvh, where the shell launches bvh_walk and the instances wave2_mt.
 16. reverse-mode gradients (tools/torch_check_gradients.py): (a) the
     gradients of the scene of tests/test_gradients.py (32^2, depth 4, MIS)
     with respect to the material tables, the light colours, the camera
@@ -689,6 +691,37 @@ def instance_windows(scene, meta, cam, dev, label, time=None):
     return windows
 
 
+def instance_path(vp, label, meshes):
+    """One pass traced and profiled: the top level's engine queries (counter
+    ``instances.queries``) against the traversals that reached the
+    instances (their ``traverse.instances`` spans), at most one a shared
+    mesh each, and the device operations launched inside those spans.
+    Returns (queries, traversals, launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    profiler.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        vp.render(1)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    c, recs = profiler.counters(), profiler.records()
+    traversals = sum(1 for r in recs if r.name == "traverse.instances")
+    ops = profiler.device_ops(prof)
+    launches = profiler.device_ops_by_span(ops, recs).get("traverse.instances", 0)
+    ms = profiler.device_ms_by_span(ops, recs).get("traverse.instances", 0.0)
+    queries = c.get("instances.queries", 0)
+    fill = 100.0 * c.get("instances.pairs_sent", 0) / max(c.get("instances.pairs_tested", 0), 1)
+    profiler.reset()
+    log(f"{label} traced pass: {wall * 1e3:.1f} ms; {queries} instance engine queries in {traversals} traversals "
+        f"({queries / max(traversals, 1):.2f} a traversal), {launches} of {len(ops)} device operations "
+        f"({ms:.1f} ms) launched inside traverse.instances, pairs sent {fill:.3f}% of those tested")
+    check(traversals > 0 and queries <= meshes * traversals,
+          f"{label}: at most one engine query a shared mesh a traversal ({meshes} a traversal)")
+    return queries, traversals, launches
+
+
 def instanced_hall(baked, dev, smi):
     """Phase 15: the instanced hall against the baked one (``baked`` is the
     phase-12 viewport); before the renders, wave2_mt and the wave2 engine
@@ -721,8 +754,8 @@ def instanced_hall(baked, dev, smi):
     launches = (launch_counts() - counts0)["wave2_mt"]
     check(launches > 0 and overflow == 0, "interior800k_inst_mis: wave2_mt launched, overflow 0")
     check(bool(np.isfinite(radiance).all()) and radiance.mean() > 0, "interior800k_inst_mis: radiance finite, non-zero")
-    # no profiled pass: it takes ~56 s of the script's time limit on an H100 host (its last reading is in PERF.md)
     log(f"interior800k_inst_mis [wave2]: wave2_mt launches {launches} in 2 passes, {dt * 1e3:.1f} ms a pass")
+    instance_path(vp, "interior800k_inst_mis [wave2]", len(geoms))
     ref = Viewport(baked.scene, baked.meta, baked.cam, ViewportParams(512, 512, seed=0),
                    RenderParams(max_depth=6, mis=True), device=dev).render(2).radiance()
     rel = abs(float(radiance.mean()) - float(ref.mean())) / float(ref.mean())

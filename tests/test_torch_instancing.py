@@ -306,8 +306,9 @@ def test_traverse_and_occluded_match_reference(scenes, ref_queries, restore_mode
         assert np.array_equal(ovf.numpy(), np.asarray(ref_ovf))
         assert np.array_equal(got.overflow.numpy()[lanes], np.asarray(ref.overflow)[lanes])
         assert mode == "cluster" or not (ovf.any() or got.overflow.any())
-    n_inst = sum(scenes[name][1][0].instances.count for name in scenes)
-    want = {"cluster": (0, 0), "wave2": (0, 2 + n_inst), "bvh": (2, n_inst)}[mode]
+    # one engine call per shared mesh a traversal (the top level), not one per instance
+    n_mesh = sum(len(scenes[name][1][0].mesh_geoms) for name in scenes)
+    want = {"cluster": (0, 0), "wave2": (0, 2 + n_mesh), "bvh": (2, n_mesh)}[mode]
     assert (calls["bvh_closest_hit"], calls["wave2_closest_hit"]) == want, calls
 
 
